@@ -1,0 +1,32 @@
+"""repro_torch.engine — the serving API of the port.
+
+  * :class:`Engine` — ``submit()/step()/drain()`` continuous batching of
+    reasoning requests over the batch-native factorizer;
+  * :func:`repro_torch.engine.registry.build` — instantiate registered
+    workloads (``lvrf_rows``; more arrive with later slices of the port);
+  * :class:`Stage` / :class:`StageGraph` — declared pipelines with adSCH
+    cost hints, from which the engine sizes its sweep bursts.
+
+Typical use::
+
+    from repro_torch import engine
+    spec = engine.registry.build("lvrf_rows", 0, fused_step=True)
+    eng = engine.Engine(spec, slots=256)          # on the card
+    rid = eng.submit(row_vec)
+    done = eng.drain()
+"""
+from repro_torch.engine import registry
+from repro_torch.engine.engine import (Engine, Request, derive_sweeps_per_step,
+                                       rolling_latency_ms, step_unit_ops,
+                                       sweep_cost_ops)
+from repro_torch.engine.registry import ServeSpec
+from repro_torch.engine.stage import Stage, StageGraph, graph_ops, stage_ops
+from repro_torch.kernels.resonator_step.ops import FusedConfig
+
+from repro_torch.engine import pipelines as _builtin  # noqa: F401  (registers built-ins)
+
+__all__ = [
+    "Engine", "FusedConfig", "Request", "ServeSpec", "Stage", "StageGraph",
+    "derive_sweeps_per_step", "graph_ops", "registry", "rolling_latency_ms",
+    "stage_ops", "step_unit_ops", "sweep_cost_ops",
+]

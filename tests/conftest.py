@@ -3,3 +3,9 @@ import sys
 
 # Tests run single-device (the 512-device override belongs ONLY to dryrun.py).
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where "
+        "torch.cuda.is_available() is False")
