@@ -9,7 +9,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.quantization import QTensor
 from repro_torch.device import DEFAULT_DEVICE, resolve
+
+# fp8 dtypes by their numpy (ml_dtypes) name: torch.from_numpy refuses those
+# arrays, so they cross as raw bytes and are viewed back on this side.
+_FP8 = {"float8_e4m3fn": torch.float8_e4m3fn, "float8_e5m2": torch.float8_e5m2}
 
 
 def from_numpy(tree, device=DEFAULT_DEVICE):
@@ -38,3 +43,21 @@ def spec_arrays_from_reference(codebooks, valid_mask=None,
     mask = None if valid_mask is None else from_numpy(
         np.asarray(valid_mask, bool), device)
     return cbs, mask
+
+
+def qtensor_from_reference(qt, device=DEFAULT_DEVICE) -> QTensor:
+    """A reference ``QTensor`` (anything with ``.values`` and ``.scale``) as
+    a port :class:`QTensor` on ``device``: int8 values as they are, fp8
+    values bit for bit (through ``uint8``), scales as float32."""
+    dev = resolve(device)
+    values = np.asarray(qt.values)
+    if values.dtype.name in _FP8:
+        v = torch.from_numpy(values.view(np.uint8).copy()).view(
+            _FP8[values.dtype.name])
+    elif values.dtype == np.int8:
+        v = torch.from_numpy(values.copy())
+    else:
+        raise ValueError(f"QTensor values of dtype {values.dtype} are not "
+                         "int8, float8_e4m3fn or float8_e5m2")
+    scale = torch.from_numpy(np.asarray(qt.scale, np.float32).copy())
+    return QTensor(v, scale).to(dev)

@@ -19,11 +19,22 @@ Python loop here.  Fused-eligible configs (bipolar Jacobi, see
 kernel in :mod:`repro_torch.kernels.resonator_step` when the state lies on
 the card, and as its plain version on the CPU.
 
-Not ported yet, and refused with ``NotImplementedError``: stochastic sweeps
-(``noise_std``, ``proj_noise_std``, ``restart_every``), quantized
-(``QTensor``) codebooks and the model-sharded mode (``model_axis``).
-Per-row keys still travel in the state as int64 ``[N, 2]`` tensors so the
-stochastic slice can use them without a schema change.
+Codebooks may be a dense ``[F, M, D]`` tensor or a quantized
+:class:`~repro_torch.core.quantization.QTensor` (Tab. IX): int8 scores go
+through the CUDA kernel of :mod:`repro_torch.kernels.similarity` (one
+launch per factor per sweep on the card), fp8 scores through
+:func:`~repro_torch.core.quantization.quantized_matvec`.
+
+Stochasticity injection (Sec. IV-B: ``noise_std`` on the scores,
+``proj_noise_std`` on the projection, ``restart_every``) draws its noise
+from :mod:`repro_torch.core.rng`, a counter-based generator: each row's
+noise is a pure function of its int64 key ``[2]``, its own sweep index, the
+factor and the stream, so it does not depend on the row's slot or batch.
+The reference's ``jax.random`` streams are different numbers; stochastic
+runs are compared with it statistically.
+
+Not ported yet, and refused with ``NotImplementedError``: the model-sharded
+mode (``model_axis``).
 """
 from __future__ import annotations
 
@@ -32,7 +43,8 @@ from typing import Literal, NamedTuple
 
 import torch
 
-from repro_torch.core import vsa
+from repro_torch.core import rng, vsa
+from repro_torch.core.quantization import QTensor, quantize, quantized_matvec
 from repro_torch.core.vsa import VSAConfig
 from repro_torch.device import DEFAULT_DEVICE, generator as as_generator, resolve
 
@@ -142,7 +154,7 @@ class _State(NamedTuple):
     iters: torch.Tensor  # [N] int32 per-query sweeps executed (frozen at convergence)
     done: torch.Tensor  # [N] bool per-query convergence mask
     sim: torch.Tensor  # [N] float32 reconstruction cosine (frozen at convergence)
-    keys: torch.Tensor  # [N, 2] int64 per-query keys (for the stochastic slice)
+    keys: torch.Tensor  # [N, 2] int64 per-query keys (the noise streams')
     it: int  # global sweep counter (host side)
 
 
@@ -215,10 +227,14 @@ class Resonator(NamedTuple):
     refill_many: "object"  # (qs, state, slots [K], qs [K, D], keys [K, 2])
 
 
-def superposition_init(codebooks: torch.Tensor, cfg: FactorizerConfig,
+def _dense(codebooks) -> torch.Tensor:
+    return codebooks.dequantize() if isinstance(codebooks, QTensor) else codebooks
+
+
+def superposition_init(codebooks, cfg: FactorizerConfig,
                        valid_mask: torch.Tensor | None = None) -> torch.Tensor:
     """Zero-information starting estimate [F, D]: bundle of all valid atoms."""
-    dense_cb = codebooks
+    dense_cb = _dense(codebooks)
     if cfg.algebra == "bipolar":
         dense_cb = vsa.normalize_sign(dense_cb)
     if valid_mask is None:
@@ -228,24 +244,17 @@ def superposition_init(codebooks: torch.Tensor, cfg: FactorizerConfig,
                               dense_cb), cfg)
 
 
-def _check_supported(codebooks, cfg: FactorizerConfig, model_axis) -> None:
-    if cfg.noise_std or cfg.proj_noise_std or cfg.restart_every:
-        raise NotImplementedError(
-            "stochastic sweeps (noise_std, proj_noise_std, restart_every) need "
-            "the counter-based RNG of ROADMAP Queue A item 2 (stochastic "
-            "sweeps and nvsa_abduction)")
-    if cfg.codebook_fmt != "fp32" or not isinstance(codebooks, torch.Tensor):
-        raise NotImplementedError(
-            "quantized (QTensor int8/fp8) codebooks need the quantization "
-            "slice and the similarity_int8 kernel (ROADMAP Queue A item 1, "
-            "Queue B similarity_int8)")
+def _check_supported(cfg: FactorizerConfig, model_axis) -> None:
     if model_axis is not None:
         raise NotImplementedError(
             "the model-sharded resonator (model_axis) waits for the sharded "
-            "engine (ROADMAP Queue A item 5)")
+            "engine (ROADMAP Queue A: sharded engine)")
+    if cfg.max_iters >= rng.MAX_SWEEP:
+        raise ValueError(f"max_iters={cfg.max_iters} exceeds the noise "
+                         f"counter's {rng.MAX_SWEEP} sweeps")
 
 
-def make_resonator(codebooks: torch.Tensor, cfg: FactorizerConfig,
+def make_resonator(codebooks, cfg: FactorizerConfig,
                    valid_mask: torch.Tensor | None = None, *,
                    model_axis: str | None = None, fused=None) -> Resonator:
     """Build the sweep machinery for one codebook set (see :class:`Resonator`).
@@ -255,17 +264,21 @@ def make_resonator(codebooks: torch.Tensor, cfg: FactorizerConfig,
     (engine serving) each get the full ``cfg.max_iters`` budget and follow
     the trajectory of a solo :func:`factorize` call.
 
-    ``fused`` is an optional :class:`repro_torch.kernels.resonator_step.ops
-    .FusedConfig` for configs where :func:`fused_sweep_eligible` holds:
-    unmasked batches run the dense kernel, masked ones the mask-aware one.
-    All tensors stay on the codebooks' device.
+    ``codebooks`` is a dense ``[F, M, D]`` tensor or a :class:`QTensor`;
+    quantized codebooks never take the fused sweep.  ``fused`` is an
+    optional :class:`repro_torch.kernels.resonator_step.ops.FusedConfig`
+    for configs where :func:`fused_sweep_eligible` holds: unmasked batches
+    run the dense kernel, masked ones the mask-aware one.  All tensors stay
+    on the codebooks' device.
     """
-    _check_supported(codebooks, cfg, model_axis)
+    _check_supported(cfg, model_axis)
     vcfg = cfg.vsa
     dev = codebooks.device
-    dense_cb = codebooks
+    quantized = isinstance(codebooks, QTensor)
+    use_int8_kernel = quantized and codebooks.values.dtype == torch.int8
+    dense_cb = _dense(codebooks)
     if cfg.algebra == "bipolar":
-        dense_cb = vsa.normalize_sign(dense_cb)
+        dense_cb = vsa.normalize_sign(dense_cb)  # de-quantised atoms stay bipolar
     F, M, D = dense_cb.shape
     no_mask = valid_mask is None
     if no_mask:
@@ -273,18 +286,43 @@ def make_resonator(codebooks: torch.Tensor, cfg: FactorizerConfig,
     valid_mask = valid_mask.to(device=dev, dtype=torch.bool)
     neg = torch.tensor(-1e9, dtype=torch.float32, device=dev)
     init_est = superposition_init(codebooks, cfg, valid_mask)
-    use_fused = fused_sweep_eligible(cfg)
+    use_fused = fused_sweep_eligible(cfg) and not quantized
     factor_ids = torch.arange(F, device=dev)
 
-    def factor_update(qs, i: int, est: torch.Tensor):
+    def factor_update(qs, i: int, est: torch.Tensor, z_sim, z_proj):
         """One factor's unbind -> score -> project update for the whole batch;
-        returns (alpha_i [N, M], new_est_i [N, D])."""
+        ``z_sim`` [N, M] / ``z_proj`` [N, D] are this factor's standard
+        normals (None without that noise).  Returns (alpha_i [N, M],
+        new_est_i [N, D])."""
         unbound = _unbind(qs, est, cfg, factor=i)  # [N, D]      (Step 1)
-        alpha = unbound @ dense_cb[i].T
+        if use_int8_kernel:  # the similarity_int8 kernel on the card
+            from repro_torch.kernels.similarity import ops as sim_ops
+
+            alpha = sim_ops.codebook_scores(unbound, codebooks[i])
+        elif quantized:
+            alpha = quantized_matvec(unbound, codebooks[i])
+        else:
+            alpha = unbound @ dense_cb[i].T
         alpha = torch.where(valid_mask[i], alpha, neg)  #        (Step 2)
+        if z_sim is not None:  # stochasticity, relative to score spread
+            sigma = cfg.noise_std * torch.std(
+                torch.where(valid_mask[i], alpha, 0.0), dim=-1, keepdim=True,
+                correction=0)
+            alpha = torch.where(valid_mask[i], alpha + sigma * z_sim, alpha)
         w = _activation(alpha, cfg) * valid_mask[i]
         new_est = w @ dense_cb[i]  #                             (Step 3)
+        if z_proj is not None:
+            sigma = cfg.proj_noise_std * torch.std(new_est, dim=-1,
+                                                   keepdim=True, correction=0)
+            new_est = new_est + sigma * z_proj
         return alpha, _norm(new_est, cfg)
+
+    def noise(s: _State, tag: int, n: int, std: float):
+        """Per factor, standard normals [N, n] of stream ``tag`` at each
+        row's own sweep index; F Nones where ``std`` is 0."""
+        if not std:
+            return [None] * F
+        return rng.normal(s.keys, s.iters, tag, F, n).unbind(1)
 
     def reconstruct(idx: torch.Tensor) -> torch.Tensor:
         return vsa.bind_all(dense_cb[factor_ids, idx], vcfg, axis=-2)
@@ -304,17 +342,22 @@ def make_resonator(codebooks: torch.Tensor, cfg: FactorizerConfig,
                 alpha, est = rs.fused_resonator_step_batch_masked(
                     qs, est, dense_cb, valid_mask, activation=cfg.activation,
                     fused=fused)
-        elif cfg.synchronous:  # Jacobi: all factors from the same snapshot
-            outs = [factor_update(qs, i, est) for i in range(F)]
-            alpha = torch.stack([o[0] for o in outs], dim=1)
-            est = torch.stack([o[1] for o in outs], dim=1)
-        else:  # Gauss-Seidel: each factor sees the freshest estimates
-            est = est.clone()
-            alphas = []
-            for i in range(F):
-                alpha_i, est[:, i] = factor_update(qs, i, est)
-                alphas.append(alpha_i)
-            alpha = torch.stack(alphas, dim=1)
+        else:
+            z_sim = noise(s, rng.SCORES, M, cfg.noise_std)
+            z_proj = noise(s, rng.PROJECTION, D, cfg.proj_noise_std)
+            if cfg.synchronous:  # Jacobi: all factors from the same snapshot
+                outs = [factor_update(qs, i, est, z_sim[i], z_proj[i])
+                        for i in range(F)]
+                alpha = torch.stack([o[0] for o in outs], dim=1)
+                est = torch.stack([o[1] for o in outs], dim=1)
+            else:  # Gauss-Seidel: each factor sees the freshest estimates
+                est = est.clone()
+                alphas = []
+                for i in range(F):
+                    alpha_i, est[:, i] = factor_update(qs, i, est, z_sim[i],
+                                                       z_proj[i])
+                    alphas.append(alpha_i)
+                alpha = torch.stack(alphas, dim=1)
         # Convergence: do the hard-decoded atoms reconstruct each query?
         idx = torch.argmax(alpha, dim=-1)  # [N, F] first maximum on ties
         sim = vsa.similarity(reconstruct(idx), qs)  # [N]
@@ -324,16 +367,23 @@ def make_resonator(codebooks: torch.Tensor, cfg: FactorizerConfig,
         sim = torch.where(act, sim, s.sim)
         iters = s.iters + act.to(torch.int32)
         done = s.done | (sim >= cfg.conv_threshold)
+        if cfg.restart_every > 0:  # escape limit cycles by re-randomising
+            do_restart = act & ~done & (iters % cfg.restart_every == 0)
+            rows = torch.nonzero(do_restart).squeeze(1)  # one host sync
+            if rows.numel():
+                z = rng.normal(s.keys[rows], iters[rows], rng.RESTART, F, D)
+                est[rows] = _norm(z, cfg)  # est is this sweep's own tensor
         return _State(est, iters, done, sim, s.keys, s.it + 1)
 
     def init(qs, keys) -> _State:
         N = qs.shape[0]
+        keys = torch.as_tensor(keys, dtype=torch.int64, device=dev)
+        rng.check_keys(keys)
         return _State(init_est.expand(N, F, D).clone(),
                       torch.zeros(N, dtype=torch.int32, device=dev),
                       torch.zeros(N, dtype=torch.bool, device=dev),
                       torch.full((N,), -1.0, dtype=torch.float32, device=dev),
-                      torch.as_tensor(keys, dtype=torch.int64, device=dev),
-                      0)
+                      keys, 0)
 
     def decode(qs, s: _State) -> FactorizerResult:
         """Final decode from the (frozen) estimates."""
@@ -353,12 +403,14 @@ def make_resonator(codebooks: torch.Tensor, cfg: FactorizerConfig,
         qs, est = qs.clone(), s.est.clone()
         iters, done, sim = s.iters.clone(), s.done.clone(), s.sim.clone()
         skeys = s.keys.clone()
+        keys = torch.as_tensor(keys, dtype=torch.int64, device=dev)
+        rng.check_keys(keys)
         qs[slots] = new_qs
         est[slots] = init_est
         iters[slots] = 0
         done[slots] = False
         sim[slots] = -1.0
-        skeys[slots] = torch.as_tensor(keys, dtype=torch.int64, device=dev)
+        skeys[slots] = keys
         return qs, _State(est, iters, done, sim, skeys, s.it)
 
     def refill(qs, s: _State, slot, q, key):
@@ -389,7 +441,7 @@ def _factorize_batched(qs, codebooks, keys, cfg, valid_mask) -> FactorizerResult
 def _on(device, qs, codebooks, valid_mask):
     dev = resolve(device)
     qs = torch.as_tensor(qs, dtype=torch.float32, device=dev)
-    if isinstance(codebooks, torch.Tensor):
+    if isinstance(codebooks, (torch.Tensor, QTensor)):
         codebooks = codebooks.to(dev)
     if valid_mask is not None:
         valid_mask = torch.as_tensor(valid_mask, device=dev)
@@ -400,9 +452,10 @@ def factorize(q, codebooks, generator: torch.Generator, cfg: FactorizerConfig,
               valid_mask=None, *, device=DEFAULT_DEVICE) -> FactorizerResult:
     """Factorise one query vector q [D] into one atom index per factor.
 
-    Thin N=1 wrapper over the batched core.  ``valid_mask`` [F, M] marks
-    real atoms when factors have different cardinalities and codebooks are
-    padded to a common M.
+    Thin N=1 wrapper over the batched core.  ``codebooks`` is a dense
+    [F, M, D] tensor or an int8/fp8 :class:`QTensor` of the same logical
+    shape (Tab. IX).  ``valid_mask`` [F, M] marks real atoms when factors
+    have different cardinalities and codebooks are padded to a common M.
     """
     qs, codebooks, valid_mask = _on(device, q, codebooks, valid_mask)
     res = _factorize_batched(qs[None], codebooks, draw_keys(generator, 1), cfg,
@@ -419,6 +472,11 @@ def factorize_batch(qs, codebooks, generator: torch.Generator,
     qs, codebooks, valid_mask = _on(device, qs, codebooks, valid_mask)
     return _factorize_batched(qs, codebooks, draw_keys(generator, qs.shape[0]),
                               cfg, valid_mask)
+
+
+def quantize_codebooks(codebooks: torch.Tensor, fmt: str) -> QTensor:
+    """Per-atom quantisation of [F, M, D] codebooks (Tab. IX memory saving)."""
+    return quantize(codebooks, fmt)
 
 
 def codebook_bytes(cfg: FactorizerConfig) -> dict:

@@ -26,6 +26,7 @@ from repro_torch import obs as obs_mod
 from repro_torch.cogsim import model as hw_model
 from repro_torch.core import factorizer as fz
 from repro_torch.core import scheduler as sch
+from repro_torch.core.quantization import QTensor
 from repro_torch.core.factorizer import sweep_cost_ops  # re-export (public API)
 from repro_torch.device import DEFAULT_DEVICE, generator as as_generator, resolve
 from repro_torch.engine.registry import ServeSpec
@@ -112,7 +113,11 @@ class Engine:
     """``submit()/step()/drain()`` continuous batching over one ServeSpec.
 
     The slot state lives on ``device`` (default ``"cuda"``; raises where
-    there is no GPU).  Results come back to the host as numpy arrays.
+    there is no GPU), and so do the spec's codebooks, dense or ``QTensor``.
+    Results come back to the host as numpy arrays.  Stochastic specs draw
+    each row's noise from its pinned key and its own sweep index, so a
+    preempted, cancelled, recovered or resized row replays bit-equal on one
+    device.
     """
 
     engine_kind = "factorizer"  # unified stats schema discriminator
@@ -202,8 +207,15 @@ class Engine:
 
     @property
     def kernel_launches_per_sweep(self) -> int:
-        return 1 if (self.spec.cfg is not None
-                     and fz.fused_sweep_eligible(self.spec.cfg)) else 0
+        """Hand-written kernel launches per sweep: 1 for a fused spec, F for
+        an int8 ``QTensor`` spec (one ``similarity_int8`` per factor, Jacobi
+        or Gauss-Seidel), 0 otherwise."""
+        cbs, cfg = self.spec.codebooks, self.spec.cfg
+        if cfg is None:
+            return 0
+        if isinstance(cbs, QTensor):
+            return cfg.num_factors if cbs.values.dtype == torch.int8 else 0
+        return 1 if fz.fused_sweep_eligible(cfg) else 0
 
     def bind_obs(self, obs, track: str | None = None) -> None:
         """Adopt a recorder after construction: an engine built with the

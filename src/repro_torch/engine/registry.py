@@ -19,6 +19,7 @@ import dataclasses
 from typing import Any, Callable
 
 from repro_torch.core.factorizer import FactorizerConfig
+from repro_torch.core.quantization import QTensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,7 +32,7 @@ class ServeSpec:
     """
 
     name: str
-    codebooks: Any = None  # [F, M, D] tensor
+    codebooks: Any = None  # [F, M, D] tensor or QTensor
     cfg: FactorizerConfig | None = None
     valid_mask: Any = None  # [F, M] bool tensor or None
     graph: Any = None  # StageGraph | None — adSCH cost estimates
@@ -47,7 +48,8 @@ class ServeSpec:
         if self.codebooks is None:
             raise ValueError(f"spec {self.name!r} has no codebooks (not a "
                              "factorizer workload)")
-        return self.codebooks.shape[-1]
+        cb = self.codebooks
+        return (cb.values if isinstance(cb, QTensor) else cb).shape[-1]
 
 
 _BUILDERS: dict = {}

@@ -9,10 +9,14 @@ import pytest
 import torch
 
 from repro_torch.core import factorizer as fz
+from repro_torch.core import rng
 from repro_torch.core import vsa
+from repro_torch.core.quantization import quantize
 from repro_torch.device import disable_tf32
 from repro_torch.kernels.resonator_step import ops
 from repro_torch.kernels.resonator_step import ref
+from repro_torch.kernels.similarity import kernel as sim_kernel
+from repro_torch.kernels.similarity import ops as sim_ops
 
 
 @pytest.fixture
@@ -73,3 +77,82 @@ def test_factorize_batch_on_the_card_bit_equals_the_cpu(cuda):
     assert ops.launches - before == int(got.iterations.max())
     for name in ("indices", "iterations", "converged", "scores"):
         assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
+
+
+SIM_SHAPES = [(1, 10, 64), (7, 100, 512), (128, 257, 1024), (3, 1000, 100),
+              (256, 10, 1024), (1, 1, 1), (5, 33, 2050)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,d", SIM_SHAPES)
+def test_similarity_kernel_matches_plain_version(cuda, n, m, d):
+    """The reference's tolerance (tests/test_kernels.py: atol 2e-2, rtol
+    1e-3); the kernel applies the row scale after the sum, the plain version
+    before it, so the two differ in the last bits only."""
+    gen = torch.Generator().manual_seed(n + m + d)
+    q = torch.randn((n, d), generator=gen).to(cuda)
+    w = quantize(torch.randn((m, d), generator=gen)).to(cuda)
+    before = sim_ops.launches
+    got = sim_ops.codebook_scores(q, w)
+    want = sim_ops.similarity_int8_ref(q, w.values, w.scale)
+    assert sim_ops.launches == before + 1
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=1e-3)
+    assert (got - want).abs().max().item() < 1e-3
+
+
+@pytest.mark.cuda
+def test_similarity_kernel_takes_unaligned_rows_and_refuses_bad_inputs(cuda):
+    gen = torch.Generator().manual_seed(3)
+    flat = torch.randn(9 * 128 + 1, generator=gen).to(cuda)
+    q = flat[1:].view(9, 128)  # contiguous, but 4 bytes past a 16-byte line
+    assert q.data_ptr() % 16 != 0
+    w = quantize(torch.randn((12, 128), generator=gen)).to(cuda)
+    got = sim_kernel.similarity_int8(q, w.values, w.scale)
+    torch.testing.assert_close(
+        got, sim_ops.similarity_int8_ref(q, w.values, w.scale),
+        atol=2e-2, rtol=1e-3)
+    with pytest.raises(ValueError, match="contiguous"):
+        sim_kernel.similarity_int8(q.T, w.values, w.scale)
+    with pytest.raises(ValueError, match="int8"):
+        sim_kernel.similarity_int8(q, w.dequantize(), w.scale)
+    with pytest.raises(ValueError, match="CUDA"):
+        sim_kernel.similarity_int8(q.cpu(), w.values, w.scale)
+
+
+@pytest.mark.cuda
+def test_int8_factorize_batch_on_the_card_matches_the_cpu(cuda):
+    cfg = fz.FactorizerConfig(vsa=vsa.VSAConfig(1024, 4), num_factors=3,
+                              codebook_size=10, algebra="unitary",
+                              activation="abs", max_iters=60,
+                              conv_threshold=0.55, codebook_fmt="int8")
+    cbs = fz.make_codebooks(torch.Generator().manual_seed(1), cfg,
+                            device="cpu")
+    idx = np.random.default_rng(1).integers(0, 10, (64, 3))
+    qs = fz.bind_combo(cbs, torch.from_numpy(idx), cfg.vsa)
+    qt = fz.quantize_codebooks(cbs, "int8")
+    before = sim_ops.launches
+    got = fz.factorize_batch(qs, qt, 0, cfg, device=cuda)
+    want = fz.factorize_batch(qs, qt, 0, cfg, device="cpu")
+    assert sim_ops.launches - before == 3 * int(got.iterations.max())
+    # Rows converging within 5 sweeps are well conditioned and must agree;
+    # a slower row's trajectory can turn on the last bit of a score.
+    fast = want.iterations <= 5
+    assert fast.float().mean() >= 0.95
+    assert torch.equal(got.indices.cpu()[fast], want.indices[fast])
+    assert torch.equal(got.converged.cpu()[fast], want.converged[fast])
+    assert (got.iterations.cpu() - want.iterations)[fast].abs().max() <= 1
+    assert (want.indices.numpy() == idx).all(1).mean() >= 0.95
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag", [rng.SCORES, rng.PROJECTION, rng.RESTART])
+def test_rng_stream_on_the_card_equals_the_cpu(cuda, tag):
+    keys = fz.draw_keys(5, 300)
+    sweep = torch.arange(300) % 37
+    assert torch.equal(rng.bits(keys.to(cuda), sweep.to(cuda), tag, 3,
+                                1001).cpu(),
+                       rng.bits(keys, sweep, tag, 3, 1001))
+    torch.testing.assert_close(
+        rng.normal(keys.to(cuda), sweep.to(cuda), tag, 3, 1001).cpu(),
+        rng.normal(keys, sweep, tag, 3, 1001), atol=1e-6, rtol=0)

@@ -8,6 +8,8 @@ preemption, cancellation and recovery.  Gaussian "junk" queries sum in
 another order in the two frameworks, so for them both engines must only
 retire the row unconverged at ``max_iters``.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +27,16 @@ from repro_torch.device import disable_tf32
 from repro_torch.models import lvrf as tl
 
 D = 256
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Small tensors: one intra-op thread is faster, and keeps parallel test
+    workers from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -265,3 +277,151 @@ def test_from_numpy_keeps_the_tree_and_dtypes():
     assert got["w"][0].dtype == torch.float32 and got["w"][0].shape == (2, 3)
     assert got["w"][1][0].dtype == torch.int32
     assert torch.equal(got["b"], torch.tensor([True, False]))
+
+
+# -- quantized and stochastic specs ------------------------------------------
+
+def _stochastic_spec(kind):
+    """A stochastic spec and its problems: bipolar Gauss-Seidel with dense
+    codebooks, or the unitary int8 QTensor path of Tab. IX."""
+    from repro_torch.core import factorizer as tfz
+
+    if kind == "bipolar":
+        cfg = tfz.FactorizerConfig(vsa=tv.VSAConfig(256, 256), num_factors=3,
+                                   codebook_size=10, noise_std=0.3,
+                                   proj_noise_std=0.1, restart_every=4,
+                                   max_iters=30, conv_threshold=0.95)
+        cbs = tfz.make_codebooks(3, cfg, device="cpu")
+        dense = cbs
+    else:
+        cfg = tfz.FactorizerConfig(vsa=tv.VSAConfig(512, 4), num_factors=3,
+                                   codebook_size=10, algebra="unitary",
+                                   activation="abs", noise_std=0.3,
+                                   restart_every=4, max_iters=30,
+                                   conv_threshold=0.8, codebook_fmt="int8")
+        dense = tfz.make_codebooks(3, cfg, device="cpu")
+        cbs = tfz.quantize_codebooks(dense, "int8")
+    rng = np.random.default_rng(8)
+    qs = tfz.bind_combo(dense, torch.from_numpy(rng.integers(0, 10, (7, 3))),
+                        cfg.vsa)
+    noise = torch.from_numpy(rng.standard_normal(tuple(qs.shape))
+                             .astype(np.float32))
+    if kind == "bipolar":  # flipped signs keep the queries +-1
+        qs = torch.where(noise > 0.7, -qs, qs)
+    else:
+        qs = qs + 0.6 * qs.std() * noise
+    keys = tfz.draw_keys(9, 7)
+    return P.ServeSpec("stochastic_" + kind, codebooks=cbs, cfg=cfg), qs, keys
+
+
+def _solo(spec, q, key):
+    from repro_torch.core import factorizer as tfz
+
+    return tfz._factorize_batched(q[None], spec.codebooks, key[None],
+                                  spec.cfg, None)
+
+
+@pytest.mark.parametrize("kind", ["bipolar", "int8_unitary"])
+@pytest.mark.parametrize("run", ["batched_with_resizes", "disturbed", "solo"])
+def test_stochastic_rows_through_the_engine_equal_solo_runs(kind, run):
+    """A stochastic row's noise comes from its pinned key and its own sweep
+    index, so in a batch, across resizes, after preemption, cancellation and
+    recovery, or alone in one slot it follows the solo trajectory: bit for
+    bit on +-1 operands (bipolar).  The unitary algebra's FFTs and fp32
+    matmuls are not batch-size invariant in their last bits on the CPU, so
+    there the unitary contract holds: equal indices and converged flags,
+    iterations within +-1, scores within 1e-4."""
+    spec, qs, keys = _stochastic_spec(kind)
+    if run == "batched_with_resizes":
+        got, eng = _serve(P, spec, qs, keys, slots=4, sweeps=2,
+                          resizes=(6, 2, 8), device="cpu")
+        done, rows = {i: r for i, r in enumerate(got)}, range(len(qs))
+        assert eng.resizes_total == 3
+    elif run == "disturbed":  # preempt one live request, cancel another
+        eng = P.Engine(spec, slots=4, sweeps_per_step=1, device="cpu")
+        ids = [eng.submit(qs[i], keys=keys[i][None]) for i in range(len(qs))]
+        fin = list(eng.step())
+        live = sorted(eng.live_requests())
+        assert eng.preempt(live[0]) == 1 and eng.cancel(live[1])
+        fin += eng.step()
+        assert eng.recover() >= 1
+        fin += eng.drain()
+        done = {ids.index(r.id): r for r in fin}
+        rows = [i for i in range(len(qs)) if ids[i] != live[1]]
+        assert sorted(done) == rows and eng.recoveries_total == 1
+    else:
+        got, _ = _serve(P, spec, qs, keys, slots=1, sweeps=3, device="cpu")
+        done, rows = {i: r for i, r in enumerate(got)}, range(len(qs))
+    exact = kind == "bipolar"
+    for i in rows:
+        want = _solo(spec, qs[i], keys[i])
+        f = done[i].factorization
+        for name in ("indices", "converged") + (
+                ("iterations", "scores", "reconstruction_sim") if exact
+                else ()):
+            np.testing.assert_array_equal(getattr(f, name),
+                                          getattr(want, name).numpy(),
+                                          err_msg=f"row {i} {name}")
+        if not exact:
+            assert abs(int(f.iterations[0]) - int(want.iterations[0])) <= 1
+            np.testing.assert_allclose(f.scores, want.scores.numpy(),
+                                       atol=1e-4)
+    iters = np.array([int(done[i].iterations[0]) for i in rows])
+    assert (iters > 4).any()  # restarts were reached
+
+
+def test_quantized_spec_serves_like_the_reference_engine():
+    """A hand-built ServeSpec with int8 QTensor codebooks through both
+    engines: equal indices and converged flags, iterations within +-1 (the
+    unitary contract)."""
+    from repro.core import factorizer as rfz
+    from repro_torch.core import factorizer as tfz
+
+    kw = dict(num_factors=3, codebook_size=9, algebra="unitary",
+              activation="abs", max_iters=30, conv_threshold=0.55,
+              codebook_fmt="int8")
+    rcfg = rfz.FactorizerConfig(vsa=rv.VSAConfig(512, 4), **kw)
+    tcfg = tfz.FactorizerConfig(vsa=tv.VSAConfig(512, 4), **kw)
+    qt = rfz.quantize_codebooks(rfz.make_codebooks(jax.random.PRNGKey(1),
+                                                   rcfg), "int8")
+    idx = jax.random.randint(jax.random.PRNGKey(3), (6, 3), 0, 9)
+    qs = np.array(rfz.bind_combo(qt.dequantize(), idx, rcfg.vsa))
+    keys = np.asarray(jax.random.split(jax.random.PRNGKey(4), 6))
+    spec_r = R.ServeSpec("int8", codebooks=qt, cfg=rcfg)
+    spec_t = P.ServeSpec("int8", codebooks=convert.qtensor_from_reference(
+        qt, device="cpu"), cfg=tcfg)
+    assert spec_t.dim == spec_r.dim == 512
+    got_r, _ = _serve(R, spec_r, qs, keys, slots=4, sweeps=2)
+    got_t, eng_t = _serve(P, spec_t, qs, keys, slots=4, sweeps=2,
+                          device="cpu")
+    for a, b in zip(got_r, got_t):
+        np.testing.assert_array_equal(b.factorization.indices,
+                                      np.asarray(a.factorization.indices))
+        np.testing.assert_array_equal(b.factorization.converged,
+                                      np.asarray(a.factorization.converged))
+        assert abs(int(b.iterations[0]) - int(np.asarray(a.iterations)[0])) <= 1
+    assert all(r.factorization.converged[0] for r in got_t)
+    np.testing.assert_array_equal(
+        np.stack([r.factorization.indices[0] for r in got_t]), np.asarray(idx))
+    assert eng_t.kernel_launches_per_sweep == 3
+
+
+def test_kernel_launches_per_sweep_by_spec(lvrf_pair):
+    from repro_torch.core import factorizer as tfz
+
+    _, spec_t, *_ = lvrf_pair
+    assert P.Engine(spec_t, slots=2, device="cpu").kernel_launches_per_sweep == 1
+    unfused = P.ServeSpec("dense", codebooks=spec_t.codebooks,
+                          cfg=dataclasses.replace(spec_t.cfg,
+                                                  fused_step=False))
+    assert P.Engine(unfused, slots=2,
+                    device="cpu").kernel_launches_per_sweep == 0
+    for fmt, launches in (("int8", 3), ("fp8_e4m3", 0)):
+        cfg = dataclasses.replace(spec_t.cfg, codebook_fmt=fmt)
+        spec = P.ServeSpec(fmt, codebooks=tfz.quantize_codebooks(
+            spec_t.codebooks, fmt), cfg=cfg)
+        eng = P.Engine(spec, slots=2, device="cpu")
+        assert eng.kernel_launches_per_sweep == launches
+        assert isinstance(eng.spec.codebooks, type(spec.codebooks))
+        assert eng.spec.dim == spec_t.dim == D
+    assert P.ServeSpec("none").codebooks is None

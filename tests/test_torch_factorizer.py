@@ -20,13 +20,22 @@ import torch
 
 from repro.core import factorizer as rfz
 from repro.core import vsa as rv
-from repro.core.quantization import quantize
 from repro_torch import convert
 from repro_torch.core import factorizer as tfz
 from repro_torch.core import vsa as tv
 from repro_torch.device import disable_tf32
 
 SIZES = (5, 6, 8)  # ragged cardinalities for the masked cases
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Small tensors: one intra-op thread is faster, and keeps parallel test
+    workers from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _cfgs(**kw):
@@ -203,24 +212,229 @@ def test_superposition_init_and_bind_combo_equal_reference(masked):
         np.asarray(rfz.bind_combo(cbs, jnp.asarray(idx), rcfg.vsa)))
 
 
-@pytest.mark.parametrize("field,value", [
-    ("noise_std", 0.3), ("proj_noise_std", 0.1), ("restart_every", 10)])
-def test_stochastic_configs_are_refused(field, value):
-    _, tcfg = _cfgs(**{field: value})
-    cbs = tfz.make_codebooks(torch.Generator(), tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="counter-based RNG"):
-        tfz.factorize_batch(cbs[0, :2], cbs, torch.Generator(), tcfg,
-                            device="cpu")
+# -- quantized codebooks (Tab. IX) -------------------------------------------
+
+QCASES = {  # deterministic configs; the reference's QTensor branch
+    "unitary_gauss_seidel": dict(dims=(512, 4), algebra="unitary",
+                                 activation="abs", codebook_size=9,
+                                 max_iters=40, conv_threshold=0.55),
+    "unitary_masked_5_6_10": dict(dims=(512, 4), algebra="unitary",
+                                  activation="abs", codebook_size=10,
+                                  max_iters=40, conv_threshold=0.55,
+                                  masked=True),
+    "bipolar_jacobi": dict(synchronous=True, codebook_size=10),
+}
 
 
-def test_quantized_codebooks_are_refused():
-    rcfg, tcfg = _cfgs(codebook_fmt="int8")
-    cbs = tfz.make_codebooks(torch.Generator(), tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="QTensor"):
-        tfz.make_resonator(cbs, tcfg)
-    qt = quantize(rfz.make_codebooks(jax.random.PRNGKey(0), rcfg), "int8")
-    with pytest.raises(NotImplementedError, match="QTensor"):
-        tfz.make_resonator(qt, dataclasses.replace(tcfg, codebook_fmt="fp32"))
+def _qproblem(kw, fmt, n=12):
+    kw = dict(kw)
+    masked = kw.pop("masked", False)
+    rcfg, tcfg = _cfgs(codebook_fmt=fmt, **kw)
+    cbs = rfz.make_codebooks(jax.random.PRNGKey(1), rcfg)
+    mask = None
+    if masked:
+        sizes = (5, 6, 10)
+        mask = jnp.stack([jnp.arange(rcfg.codebook_size) < s for s in sizes])
+        idxs = jnp.stack([jax.random.randint(jax.random.PRNGKey(10 + f), (n,),
+                                             0, s)
+                          for f, s in enumerate(sizes)], -1)
+    else:
+        idxs = jax.random.randint(jax.random.PRNGKey(7),
+                                  (n, rcfg.num_factors), 0,
+                                  rcfg.codebook_size)
+    qs = rfz.bind_combo(cbs, idxs, rcfg.vsa)
+    return rcfg, tcfg, rfz.quantize_codebooks(cbs, fmt), mask, qs, idxs
+
+
+@pytest.mark.parametrize("fmt", ["int8", "fp8_e4m3"])
+@pytest.mark.parametrize("case", list(QCASES))
+def test_quantized_factorize_batch_matches_reference(case, fmt):
+    """Equal indices and converged flags, iterations within +-1: the
+    reference's own contract across batch layouts
+    (tests/test_factorizer_batch.py); final scores within fp32 (int8) or
+    bf16 (fp8) rounding."""
+    disable_tf32()
+    rcfg, tcfg, qt, mask, qs, idxs = _qproblem(QCASES[case], fmt)
+    ref = rfz.factorize_batch(qs, qt, jax.random.PRNGKey(2), rcfg, mask)
+    t_qt = convert.qtensor_from_reference(qt, device="cpu")
+    t_mask = None if mask is None else torch.from_numpy(np.array(mask))
+    got = tfz.factorize_batch(torch.from_numpy(np.array(qs)), t_qt,
+                              torch.Generator().manual_seed(2), tcfg, t_mask,
+                              device="cpu")
+    _assert_results_equal(ref, got, iter_tol=1, exact_scores=False)
+    # fp8 scores are bf16 products in both packages: one bf16 rounding
+    # (2^-9 relative) apart where the two sum in another order
+    np.testing.assert_allclose(got.scores.numpy(), np.asarray(ref.scores),
+                               atol=1e-4 if fmt == "int8" else 4e-3)
+    conv = got.converged.numpy()
+    assert conv.any()  # and every converged row decodes right
+    np.testing.assert_array_equal(got.indices.numpy()[conv],
+                                  np.asarray(idxs)[conv])
+
+
+def test_quantized_superposition_init_equals_reference():
+    rcfg, tcfg, qt, mask, _, _ = _qproblem(QCASES["unitary_masked_5_6_10"],
+                                           "int8")
+    got = tfz.superposition_init(convert.qtensor_from_reference(qt, "cpu"),
+                                 tcfg, torch.from_numpy(np.array(mask)))
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(rfz.superposition_init(qt, rcfg, mask)),
+        atol=1e-6)
+
+
+def test_int8_scores_go_through_the_similarity_op_once_per_factor():
+    from repro_torch.kernels.similarity import ops as sim_ops
+
+    _, tcfg, qt, _, qs, _ = _qproblem(QCASES["unitary_gauss_seidel"], "int8")
+    calls = []
+    real = sim_ops.codebook_scores
+
+    def spy(q, codebook):
+        calls.append(tuple(codebook.shape))
+        return real(q, codebook)
+
+    sim_ops.codebook_scores = spy
+    try:
+        got = tfz.factorize_batch(torch.from_numpy(np.array(qs)),
+                                  convert.qtensor_from_reference(qt, "cpu"),
+                                  2, tcfg, device="cpu")
+    finally:
+        sim_ops.codebook_scores = real
+    assert len(calls) == 3 * int(got.iterations.max())
+    assert set(calls) == {(9, 512)}
+
+
+# -- stochasticity injection (Sec. IV-B) --------------------------------------
+
+HARD = dict(dims=(1024, 4), num_factors=4, codebook_size=10,
+            algebra="unitary", activation="abs", max_iters=150,
+            conv_threshold=0.9)
+
+
+def _hard_problem(rcfg, n=32):
+    """tests/test_factorizer.py's problem set: codebooks from PRNGKey(1),
+    indices from PRNGKey(7)."""
+    cbs = rfz.make_codebooks(jax.random.PRNGKey(1), rcfg)
+    idxs = jax.random.randint(jax.random.PRNGKey(7),
+                              (n, rcfg.num_factors), 0, rcfg.codebook_size)
+    return cbs, np.asarray(idxs), rfz.bind_combo(cbs, idxs, rcfg.vsa)
+
+
+@pytest.mark.parametrize("fmt", ["fp32", "int8"])
+def test_stochasticity_improves_the_hard_case(fmt):
+    """The reference's own bar (tests/test_factorizer.py): noise 0.3 and
+    restarts every 20 beat the deterministic sweep by more than 5 points."""
+    _, tcfg0 = _cfgs(codebook_fmt=fmt, **HARD)
+    rcfg, tcfg1 = _cfgs(codebook_fmt=fmt, noise_std=0.3, restart_every=20,
+                        **HARD)
+    cbs, idxs, qs = _hard_problem(rcfg)
+    t_cbs = torch.from_numpy(np.array(cbs))
+    if fmt == "int8":
+        t_cbs = tfz.quantize_codebooks(t_cbs, "int8")
+    t_qs = torch.from_numpy(np.array(qs))
+    acc = [float((tfz.factorize_batch(t_qs, t_cbs, 2, c, device="cpu")
+                  .indices.numpy() == idxs).all(-1).mean())
+           for c in (tcfg0, tcfg1)]
+    assert acc[1] > acc[0] + 0.05, acc
+
+
+@pytest.mark.parametrize("fmt", ["fp32", "int8"])
+def test_tab07_stochastic_accuracy_is_the_reference_s(fmt):
+    """Tab. VII "2x2Grid" (benchmarks/paper_tables.py: F=4, M=10, D=1024,
+    B=4, noise 0.3, restarts every 20, 48 problems with query noise 0.3 std):
+    the port's accuracy within 0.1 of the reference's on the same problems
+    (the two draw different noise)."""
+    rcfg, tcfg = _cfgs(dims=(1024, 4), num_factors=4, codebook_size=10,
+                       algebra="unitary", activation="abs", noise_std=0.3,
+                       restart_every=20, max_iters=100, conv_threshold=0.55,
+                       codebook_fmt=fmt)
+    cbs = rfz.make_codebooks(jax.random.PRNGKey(1), rcfg)
+    idxs = jax.random.randint(jax.random.PRNGKey(0), (48, 4), 0, 10)
+    qs = rfz.bind_combo(cbs, idxs, rcfg.vsa)
+    qs = qs + 0.3 * jnp.std(qs) * jax.random.normal(jax.random.PRNGKey(1),
+                                                     qs.shape)
+    cb_r = rfz.quantize_codebooks(cbs, fmt) if fmt == "int8" else cbs
+    ref = rfz.factorize_batch(qs, cb_r, jax.random.PRNGKey(2), rcfg)
+    cb_t = (convert.qtensor_from_reference(cb_r, "cpu") if fmt == "int8"
+            else torch.from_numpy(np.array(cbs)))
+    got = tfz.factorize_batch(torch.from_numpy(np.array(qs)), cb_t, 2, tcfg,
+                              device="cpu")
+    idxs = np.asarray(idxs)
+    acc_r = float((np.asarray(ref.indices) == idxs).all(-1).mean())
+    acc_t = float((got.indices.numpy() == idxs).all(-1).mean())
+    assert abs(acc_t - acc_r) <= 0.1, (acc_t, acc_r)
+    assert acc_t >= 0.85
+
+
+STOCHASTIC = {  # each noise source alone, on a bipolar Gauss-Seidel problem
+    "noise_std": dict(noise_std=0.3),
+    "proj_noise_std": dict(proj_noise_std=0.5),
+    "restart_every": dict(restart_every=3),
+    "jacobi_all_three": dict(synchronous=True, noise_std=0.3,
+                             proj_noise_std=0.2, restart_every=4),
+}
+
+
+@pytest.mark.parametrize("case", list(STOCHASTIC))
+def test_stochastic_rows_do_not_depend_on_their_batch(case):
+    """Each row's noise is a function of its key and its own sweep index:
+    a row solo, in a batch, or in a shuffled batch gives the same bits, and
+    the noise is live (the deterministic trajectory differs)."""
+    kw = dict(num_factors=3, codebook_size=10, max_iters=30,
+              conv_threshold=0.95)
+    _, tcfg = _cfgs(**kw, **STOCHASTIC[case])
+    _, tcfg0 = _cfgs(**kw, synchronous=STOCHASTIC[case].get("synchronous",
+                                                            False))
+    cbs = tfz.make_codebooks(3, tcfg, device="cpu")
+    idx = torch.from_numpy(np.random.default_rng(0).integers(0, 10, (6, 3)))
+    qs = tfz.bind_combo(cbs, idx, tcfg.vsa)
+    qs = qs * torch.where(torch.rand(qs.shape, generator=torch.Generator()
+                                     .manual_seed(1)) < 0.25, -1.0, 1.0)
+    keys = tfz.draw_keys(4, 6)
+    batch = tfz._factorize_batched(qs, cbs, keys, tcfg, None)
+    perm = torch.tensor([3, 0, 5, 1, 4, 2])
+    shuffled = tfz._factorize_batched(qs[perm], cbs, keys[perm], tcfg, None)
+    for i in range(6):
+        solo = tfz._factorize_batched(qs[i:i + 1], cbs, keys[i:i + 1], tcfg,
+                                      None)
+        j = int((perm == i).nonzero())
+        for name in tfz.FactorizerResult._fields:
+            assert torch.equal(getattr(solo, name)[0], getattr(batch, name)[i])
+            assert torch.equal(getattr(shuffled, name)[j],
+                               getattr(batch, name)[i])
+    plain = tfz._factorize_batched(qs, cbs, keys, tcfg0, None)
+    assert not torch.equal(plain.scores, batch.scores)
+    other = tfz._factorize_batched(qs, cbs, tfz.draw_keys(5, 6), tcfg, None)
+    assert not torch.equal(other.scores, batch.scores)
+
+
+def test_restarts_rerandomise_stuck_rows_only():
+    """A row that has not converged when its sweep count reaches a multiple
+    of restart_every starts again from fresh normalised noise."""
+    _, tcfg = _cfgs(num_factors=3, codebook_size=10, max_iters=8,
+                    conv_threshold=1.1, restart_every=4)  # never converges
+    cbs = tfz.make_codebooks(3, tcfg, device="cpu")
+    rs = tfz.make_resonator(cbs, tcfg)
+    qs = cbs[0, :2] * cbs[1, :2] * cbs[2, :2]
+    s = rs.init(qs, tfz.draw_keys(1, 2))
+    for _ in range(3):
+        s = rs.sweep(qs, s)
+    before = s.est.clone()
+    s = rs.sweep(qs, s)  # the 4th sweep restarts both rows
+    assert s.iters.tolist() == [4, 4]
+    from repro_torch.core import rng
+    want = tfz._norm(rng.normal(s.keys, s.iters, rng.RESTART, 3, 256), tcfg)
+    assert torch.equal(s.est, want) and not torch.equal(s.est, before)
+
+
+def test_factorize_refuses_keys_outside_the_counter_range():
+    _, tcfg = _cfgs(noise_std=0.3)
+    cbs = tfz.make_codebooks(0, tcfg, device="cpu")
+    rs = tfz.make_resonator(cbs, tcfg)
+    with pytest.raises(ValueError, match="2\\^62"):
+        rs.init(cbs[0, :1], torch.tensor([[-1, 3]]))
+    with pytest.raises(ValueError, match="max_iters"):
+        tfz.make_resonator(cbs, dataclasses.replace(tcfg, max_iters=1 << 20))
 
 
 def test_model_axis_is_refused():
@@ -228,3 +442,34 @@ def test_model_axis_is_refused():
     cbs = tfz.make_codebooks(torch.Generator(), tcfg, device="cpu")
     with pytest.raises(NotImplementedError, match="sharded engine"):
         tfz.make_resonator(cbs, tcfg, model_axis="model")
+
+
+def test_well_conditioned_rows_survive_another_summation_order():
+    """The card's similarity kernel applies each row's scale after its sum;
+    the plain version scales the codebook first.  The rows that converge
+    within 5 sweeps (the paper's regime) must decode the same with either
+    order -- the contract ``chip_smoke.py`` holds the card to against the
+    CPU -- while a row that hovers longer may go another way."""
+    from repro_torch.kernels.similarity import ops as sim_ops
+
+    cfg = tfz.FactorizerConfig(vsa=tv.VSAConfig(1024, 4), num_factors=3,
+                               codebook_size=10, algebra="unitary",
+                               activation="abs", max_iters=100,
+                               conv_threshold=0.55, codebook_fmt="int8")
+    cbs = tfz.make_codebooks(1, cfg, device="cpu")
+    idx = np.random.default_rng(7).integers(0, 10, (256, 3))
+    qs = tfz.bind_combo(cbs, torch.from_numpy(idx), cfg.vsa)
+    qt = tfz.quantize_codebooks(cbs, "int8")
+    plain = tfz.factorize_batch(qs, qt, 0, cfg, device="cpu")
+    real = sim_ops._ref.similarity_int8_ref
+    sim_ops._ref.similarity_int8_ref = \
+        lambda q, w, s: (q @ w.to(torch.float32).T) * s[:, 0]
+    try:
+        other = tfz.factorize_batch(qs, qt, 0, cfg, device="cpu")
+    finally:
+        sim_ops._ref.similarity_int8_ref = real
+    fast = plain.iterations <= 5
+    assert fast.float().mean() >= 0.95
+    assert torch.equal(other.indices[fast], plain.indices[fast])
+    assert torch.equal(other.converged[fast], plain.converged[fast])
+    assert (other.iterations - plain.iterations)[fast].abs().max() <= 1
