@@ -30,7 +30,22 @@ port from the checkout's sources (into ``build/kernels/``), then:
  10. times the similarity kernel, its plain version, its bound and one
      PyTorch matmul over a dequantized codebook (device time from CUDA-graph
      replay, and per call with the host included);
- 11. prints one JSON line describing every kernel, the card line, and as
+ 11. holds the paged decode attention kernel ``flash_decode`` against its
+     plain version at the reference test's block-boundary cases and at the
+     serving shape of Llama 3.2 3B, bf16 and int8 pools (2e-5);
+ 12. serves Llama 3.2 3B at full width (28 layers, d 3072, GQA 24/8, vocab
+     128256; random bf16 weights drawn on the card) through
+     ``LMEngine(slots=32, paged bs 16, chunk 64)``: 64 greedy requests of
+     16-512 prompt tokens and 32 new tokens each; every request complete,
+     no non-finite logit, flash_decode launches = 28 x decode steps; wall,
+     rates, latency, the spans and the decode step's host and device time;
+ 13. the greedy contract: 8 prompts through ``ServeEngine`` with the kernel
+     and with the dense path may diverge only at near ties;
+ 14. the int8 KV pool: 16 requests through ``LMEngine`` with the same
+     checks, and the greedy contract on 4 prompts;
+ 15. times flash_decode, its plain version, its bound and one SDPA call at
+     the serving shape, bf16 and int8 (CUDA-graph replay);
+ 16. prints one JSON line describing every kernel, the card line, and as
      the last line ``{"ok": true, "device": {...}}``.
 
 A failed phase raises, and the script exits nonzero.  Without a CUDA device,
@@ -633,6 +648,495 @@ def phase_timing(torch, dev, rs, ref, card):
     return times
 
 
+# flash_decode: the reference test's shapes (tests/test_flash_decode.py:
+# B, G, rep, dh = 3, 2, 2, 16, bs 8, W 3, every boundary case, and rows of
+# length zero) and the serving shape of Llama 3.2 3B (32 slots, 8 KV heads,
+# rep 3, dh 128, bs 16); the reference's tolerance for its kernel.
+FD_LENS = ((1, 1, 1), (3, 8, 9), (8, 16, 24), (9, 17, 23), (16, 24, 8),
+           (24, 24, 24), (0, 5, 0))
+FD_ATOL = FD_RTOL = 2e-5
+LM_SLOTS, LM_BLOCK, LM_CHUNK = 32, 16, 64
+LM_REQUESTS, LM_NEW = 64, 32
+LM_PROMPTS = (16, 512)  # prompt lengths, uniform, inclusive
+# Room for the longest prompt, its 32 tokens and the overshoot of an adSCH
+# decode burst (14 steps at 32 slots): 560 positions, 35 blocks a slot.
+LM_MAX_LEN = 560
+INT8_LM_REQUESTS = 16
+# The greedy contract (phases 13, 14).  The kernel and the dense path round
+# attention differently in the last fp32 bits, which flips the bf16 rounding
+# of a few attention outputs per layer and moves the bf16 logits by a few
+# ulps of a row's top logit.  DEV_ULPS bounds that move at every (row, step)
+# pair; the readings it was set from are in PERF.md (PR 13).  A stream that
+# takes another token than the dense run then does so at a near tie: the
+# dense run's top-2 gap is at most 2 * DEV_ULPS.
+DEV_ULPS = 8
+# The negative control: the kernel run with the newest position of every row
+# left out of attention must break the contract within this many steps.
+FAULT_PROMPTS, FAULT_STEPS = 4, 4
+
+
+def fd_inputs(torch, b, g, rep, dh, bs, width, kv_dtype, seed, dev,
+              q_scale=1.0):
+    """q (normal, times `q_scale`), a random pool and a table giving each
+    row `width` distinct blocks (the last physical block is the trash
+    block)."""
+    import numpy as np
+
+    from repro_torch.nn.layers import _quant_kv
+
+    rng = np.random.default_rng(seed)
+    nbp = b * width + 1
+    q = torch.from_numpy(rng.standard_normal((b, g, rep, dh), np.float32)
+                         * np.float32(q_scale))
+    pool = {}
+    for name in ("k", "v"):
+        t = torch.from_numpy(rng.standard_normal((nbp, bs, g, dh),
+                                                 np.float32)).to(dev)
+        if kv_dtype == "int8":
+            pool[name], pool[name + "_scale"] = _quant_kv(t)
+        else:
+            pool[name] = t.to(torch.bfloat16)
+    table = torch.from_numpy(rng.permutation(b * width).astype(np.int32)
+                             .reshape(b, width))
+    return q.to(dev), pool, table.to(dev)
+
+
+def phase_flash_decode(torch, dev, fd):
+    """flash_decode against its plain version on the card: the reference
+    test's boundary cases, then the serving shape; bf16 and int8 pools.
+    Returns the max |kernel - plain| per pool dtype."""
+    import numpy as np
+
+    err = {"bf16": 0.0, "int8": 0.0}
+
+    def check(kv, q, pool, table, lens, what):
+        before = fd.launches
+        got = fd.flash_decode(q, pool, table, lens)
+        want = fd.flash_decode_plain(q, pool["k"], pool["v"], table, lens,
+                                     pool.get("k_scale"), pool.get("v_scale"))
+        torch.cuda.synchronize()
+        if fd.launches != before + 1:
+            raise AssertionError(f"flash_decode at {what}: "
+                                 f"{fd.launches - before} launches, not 1")
+        diff = (got - want).abs()
+        err[kv] = max(err[kv], diff.max().item())
+        if not bool((diff <= FD_ATOL + FD_RTOL * want.abs()).all()):
+            raise AssertionError(f"flash_decode ({kv}) at {what}: max "
+                                 f"|kernel - plain| {diff.max().item()}")
+        zero = lens == 0
+        if zero.any() and not bool((got[zero] == 0).all()):
+            raise AssertionError(f"flash_decode ({kv}) at {what}: a row of "
+                                 "length 0 is not exact zeros")
+        return diff.max().item()
+
+    for kv in ("bf16", "int8"):
+        for lens in FD_LENS:
+            q, pool, table = fd_inputs(torch, 3, 2, 2, 16, 8, 3, kv,
+                                       sum(lens), dev)
+            check(kv, q, pool, table,
+                  torch.tensor(lens, dtype=torch.int32, device=dev),
+                  f"lens {lens}")
+        width = -(-LM_MAX_LEN // LM_BLOCK)
+        # q pre-scaled by dh^-0.5, as the attention layer passes it
+        q, pool, table = fd_inputs(torch, LM_SLOTS, 8, 3, 128, LM_BLOCK,
+                                   width, kv, 13, dev, 128 ** -0.5)
+        lens = np.random.default_rng(14).integers(1, LM_MAX_LEN + 1, LM_SLOTS)
+        lens[:2] = (0, LM_MAX_LEN)
+        d = check(kv, q, pool, table,
+                  torch.from_numpy(lens.astype(np.int32)).to(dev),
+                  "the serving shape")
+        print(f"phase 11: flash_decode ({kv} pool) within atol {FD_ATOL}, "
+              f"rtol {FD_RTOL} of its plain version at every boundary case "
+              f"of B, G, rep, dh = 3, 2, 2, 16, bs 8, W 3 (rows of length 0 "
+              f"exact zeros) and at the serving shape B={LM_SLOTS} G=8 rep=3 "
+              f"dh=128 bs={LM_BLOCK} W={width}: max |kernel - plain| "
+              f"{err[kv]:.3g} ({d:.3g} at the serving shape)", flush=True)
+    return err
+
+
+def lm_prompts(n, vocab, seed=31):
+    """`n` prompts of lengths uniform in LM_PROMPTS, random token ids."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(LM_PROMPTS[0], LM_PROMPTS[1] + 1, n)
+    return [rng.integers(0, vocab, int(k)) for k in lens]
+
+
+def _nan_tap(torch, serve):
+    """Count non-finite logits of the active rows of every decode step, on
+    the device (no extra sync)."""
+    bad = torch.zeros((), dtype=torch.int64, device=serve.device)
+    inner = serve.step
+
+    def step(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        if out is not None:
+            act = torch.from_numpy(serve.active.copy()).to(serve.device)
+            bad.add_(((~torch.isfinite(serve.last_logits))
+                      & act[:, None]).sum())
+        return out
+
+    serve.step = step
+    return bad
+
+
+def serve_lm(torch, dev, cfg, model, prompts, fd, tag):
+    """Drain `prompts` through LMEngine on the card; check every request and
+    the launch count; return the run's numbers."""
+    from repro_torch import obs, runtime
+    from repro_torch.lm.paging import PagedConfig
+
+    rec = obs.Recorder()
+    eng = runtime.LMEngine(
+        cfg, model, slots=LM_SLOTS, max_len=LM_MAX_LEN, obs=rec, device=dev,
+        paged=PagedConfig(block_size=LM_BLOCK, prefill_chunk=LM_CHUNK))
+    bad = _nan_tap(torch, eng.serve)
+    torch.cuda.synchronize()
+    fd.launches = 0  # this path's run starts here
+    t0 = time.perf_counter()
+    ids = [eng.submit(p, max_new_tokens=LM_NEW) for p in prompts]
+    done = {r.id: r for r in eng.drain()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fd.launches  # ... and ends here
+    short = [i for i in ids if len(done[i].tokens) != LM_NEW
+             or done[i].truncated]
+    if short:
+        raise AssertionError(f"{tag}: {len(short)} requests without "
+                             f"{LM_NEW} tokens or truncated")
+    if int(bad):
+        raise AssertionError(f"{tag}: {int(bad)} non-finite logits")
+    dispatches = eng.serve.decode_dispatches
+    if launches != cfg.n_layers * dispatches or launches == 0:
+        raise AssertionError(f"{tag}: flash_decode launches {launches} != "
+                             f"{cfg.n_layers} x {dispatches} decode steps")
+    spent: dict = {}
+    for sp in rec.spans.snapshot():
+        if sp.duration is not None:
+            spent[sp.name] = spent.get(sp.name, 0.0) + sp.duration
+    snap = eng.snapshot()
+    return {"wall": wall, "launches": launches, "dispatches": dispatches,
+            "snap": snap, "spent": spent, "engine": eng,
+            "tokens": {i: done[i].tokens for i in ids}}
+
+
+def lm_breakdown(torch, dev, cfg, model, lens, fd, card):
+    """Where a decode step and a prefill chunk spend their time, at the
+    run's shape (LM_SLOTS active slots at `lens`; one LM_CHUNK-token chunk
+    at position 256) on a pool of the run's size: device time from
+    CUDA-graph replay (the kernels back to back, no host), host wall of an
+    eager call ended by a sync, and a profiler trace of the eager decode
+    step (kernels launched, device busy time, the costliest kernels).
+    Returns the decode step's device ms."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.lm import model as lm_model
+    from repro_torch.lm.paging import BlockTablePool
+
+    width = -(-LM_MAX_LEN // LM_BLOCK)
+    blocks = BlockTablePool(LM_SLOTS * width, LM_BLOCK, LM_SLOTS, width)
+    for s, n in enumerate(lens):
+        blocks.ensure(s, int(n) + 1)
+    pool = lm_model.init_pool(cfg, LM_SLOTS * width, LM_BLOCK, dev)
+    table = torch.from_numpy(blocks.table()).to(dev)
+    kv_lens = torch.from_numpy(np.asarray(lens, np.int32)).to(dev)
+    tokens = torch.ones((LM_SLOTS, 1), dtype=torch.int64, device=dev)
+    active = torch.ones(LM_SLOTS, dtype=torch.bool, device=dev)
+    chunk = torch.ones((1, LM_CHUNK), dtype=torch.int64, device=dev)
+    step = lambda: lm_model.decode_step_paged(model, cfg, pool, table,
+                                              kv_lens, tokens, active)
+    prefill = lambda: lm_model.prefill_chunk_paged(model, cfg, pool, table[0],
+                                                   256, chunk, LM_CHUNK)
+    launches = fd.launches
+    out = {}
+    for name, fn in (("decode step", step), ("prefill chunk", prefill)):
+        dev_ms = graph_ms(fn, iters=5, replays=4)
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+            torch.cuda.synchronize()
+        out[name] = (dev_ms, (time.perf_counter() - t0) / 5 * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+    fd.launches = launches  # these launches are not the main path's
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = {e.key: getattr(e, "self_device_time_total", 0.0) / 3e3
+            for e in kern}
+    calls = sum(e.count for e in kern) / 3
+    top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
+    total = sum(busy.values())
+    print(f"phase 12: breakdown on {card}: decode step ({LM_SLOTS} slots, "
+          f"mean length {np.mean(lens):.0f}) device {out['decode step'][0]:.3f} "
+          f"ms (CUDA graph), host wall eager {out['decode step'][1]:.3f} ms; "
+          f"prefill chunk ({LM_CHUNK} tokens at position 256) device "
+          f"{out['prefill chunk'][0]:.3f} ms, host wall eager "
+          f"{out['prefill chunk'][1]:.3f} ms", flush=True)
+    if not kern:
+        print("phase 12: the profiler recorded no device events", flush=True)
+    else:
+        print(f"phase 12: profiler, eager decode step: {calls:.0f} device "
+              f"operations, {total:.3f} ms device busy; costliest: "
+              + "; ".join(f"{k[:60]} {v:.3f} ms ({v / total:.0%})"
+                          for k, v in top), flush=True)
+    del pool
+
+
+def phase_lm_serving(torch, dev, fd, card):
+    """Llama 3.2 3B at full width, random bf16 weights, through LMEngine on
+    the card: 64 greedy requests, then the greedy contract, then the int8
+    KV pool."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.nn import transformer as T
+
+    cfg = registry.get("llama3.2-3b").full()
+    t0 = time.perf_counter()
+    model = T.init(cfg, 0, dev)
+    torch.cuda.synchronize()
+    n_params = T.param_count(model)
+    print(f"phase 12: {cfg.name}: {n_params:,} parameters, random bf16 "
+          f"weights drawn on the card in {time.perf_counter() - t0:.1f} s "
+          f"({torch.cuda.memory_allocated() / 1e9:.2f} GB)", flush=True)
+    prompts = lm_prompts(LM_REQUESTS, cfg.vocab)
+    serve_lm(torch, dev, cfg, model, prompts[:2], fd, "warm-up")
+    run = serve_lm(torch, dev, cfg, model, prompts, fd, "bf16 run")
+    snap, spent, wall = run["snap"], run["spent"], run["wall"]
+    steps = run["dispatches"]
+    pool_gb = sum(t.numel() * t.element_size()
+                  for t in run["engine"].serve.pool.values()) / 1e9
+    host_ms = spent["decode-burst"] / steps * 1e3
+    print(f"phase 12: {LM_REQUESTS} greedy requests (prompts {LM_PROMPTS[0]}-"
+          f"{LM_PROMPTS[1]} tokens, {LM_NEW} new each) through LMEngine("
+          f"slots={LM_SLOTS}, paged bs={LM_BLOCK}, chunk={LM_CHUNK}, "
+          f"max_len={LM_MAX_LEN}; KV pool {pool_gb:.2f} GB) on {card}: all "
+          f"{LM_NEW} tokens, none truncated, no non-finite logit; wall "
+          f"{wall * 1e3:.1f} ms, {LM_REQUESTS / wall:.2f} requests/s, "
+          f"{LM_REQUESTS * LM_NEW / wall:.1f} generated tokens/s, p50 "
+          f"{snap['latency_p50_ms']:.1f} ms, p99 {snap['latency_p99_ms']:.1f}"
+          f" ms; spans: prefill (fill) {spent['fill'] * 1e3:.1f} ms in "
+          f"{run['engine'].serve.prefill_dispatches} chunks, decode "
+          f"{spent['decode-burst'] * 1e3:.1f} ms in {steps} steps "
+          f"(decode_per_step={run['engine'].decode_per_step}), retire "
+          f"{spent['retire'] * 1e3:.1f} ms; host wall per decode step "
+          f"{host_ms:.3f} ms; flash_decode launches {run['launches']} = "
+          f"{cfg.n_layers} x {steps}", flush=True)
+    # mid-decode lengths of the first slot batch: the timing shape
+    lens = [min(len(p) + LM_NEW // 2, LM_MAX_LEN - 1)
+            for p in prompts[:LM_SLOTS]]
+    lm_breakdown(torch, dev, cfg, model, lens, fd, card)
+    greedy_contract(torch, dev, cfg, model, prompts[:8], "bf16", 13)
+    fault_control(torch, dev, cfg, model, prompts[:FAULT_PROMPTS], fd)
+    launches = {"bf16": run["launches"]}
+    del run
+    torch.cuda.empty_cache()
+
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    run8 = serve_lm(torch, dev, cfg8, model, prompts[:INT8_LM_REQUESTS], fd,
+                    "int8 run")
+    launches["int8"] = run8["launches"]
+    print(f"phase 14: int8 KV pool: {INT8_LM_REQUESTS} greedy requests "
+          f"through the same LMEngine: all {LM_NEW} tokens, none truncated, "
+          f"no non-finite logit; wall {run8['wall'] * 1e3:.1f} ms, "
+          f"{INT8_LM_REQUESTS * LM_NEW / run8['wall']:.1f} generated "
+          f"tokens/s; flash_decode launches {run8['launches']} = "
+          f"{cfg.n_layers} x {run8['dispatches']}", flush=True)
+    del run8
+    torch.cuda.empty_cache()
+    greedy_contract(torch, dev, cfg8, model, prompts[:4], "int8", 14)
+    return launches, lens
+
+
+def greedy_contract(torch, dev, cfg, model, prompts, kv, phase,
+                    steps=LM_NEW):
+    """The same prompts through two ServeEngines in lockstep, one with the
+    kernel and one with the dense path (``use_flash=False``).
+
+    The kernel run is fed the dense run's token at every step, so each of
+    the len(prompts) x steps (row, step) pairs is compared, not only those
+    before a stream first takes another token.  The contract: at every pair,
+    max |dlogit| over the vocabulary is at most DEV_ULPS bf16 ulps of the
+    dense row's top logit.  A pair where the tokens differ then has a dense
+    top-2 gap of at most 2 * DEV_ULPS (the two logits moved by at most
+    DEV_ULPS each): a near tie.  Returns (diverging streams, first step's
+    max |dlogit|)."""
+    from repro_torch.launch.serve import ServeEngine
+    from repro_torch.lm.paging import PagedConfig
+
+    engs = []
+    for use_flash in (True, False):
+        eng = ServeEngine(cfg, model, len(prompts), LM_MAX_LEN, device=dev,
+                          paged=PagedConfig(block_size=LM_BLOCK,
+                                            prefill_chunk=LM_CHUNK,
+                                            use_flash=use_flash))
+        for s, p in enumerate(prompts):
+            eng.add_request(s, p)
+        engs.append(eng)
+    kern, plain = engs
+    diverged = set()
+    d0 = worst = 0.0
+    gaps, pinned = [], 0
+    for step in range(steps):
+        kern.step()
+        plain.step()
+        lk, lp = kern.last_logits, plain.last_logits
+        top = torch.topk(lp, 2, dim=-1).values
+        ulp = torch.exp2(torch.floor(torch.log2(top[:, 0].abs())) - 7)
+        dev_ulps = ((lk - lp).abs().amax(-1) / ulp).cpu()
+        gap = ((top[:, 0] - top[:, 1]) / ulp).cpu()
+        if step == 0:
+            d0 = (lk - lp).abs().max().item()
+        worst = max(worst, float(dev_ulps.max()))
+        if worst > DEV_ULPS:
+            s = int(dev_ulps.argmax())
+            raise AssertionError(
+                f"greedy ({kv}): row {s} at step {step}: the kernel run's "
+                f"logits differ from the dense run's by {worst:.2f} bf16 "
+                f"ulps of the row's top logit > {DEV_ULPS}")
+        pinned += int((gap > 2 * DEV_ULPS).sum())
+        for s in range(len(prompts)):
+            a = plain.generated[s][-1]
+            if kern.generated[s][-1] != a:
+                diverged.add(s)
+                gaps.append(f"{float(gap[s]):.1f}")
+                kern.generated[s][-1] = a  # the next step reads a's K/V
+    print(f"phase {phase}: greedy contract ({kv} pool), {len(prompts)} "
+          f"prompts x {steps} steps in lockstep, kernel against the dense "
+          f"path, the kernel run fed the dense run's tokens: "
+          f"{len(diverged)} of {len(prompts)} streams take another token at "
+          f"some step, at {len(gaps)} (row, step) pairs with dense top-2 "
+          f"gaps [{', '.join(gaps)}] bf16 ulps; max |dlogit| at any pair "
+          f"{worst:.2f} ulps of the row's top logit (limit {DEV_ULPS}); "
+          f"{pinned} of {len(prompts) * steps} pairs have a gap above "
+          f"{2 * DEV_ULPS} ulps, where the limit pins the token; first "
+          f"step's max |dlogit| {d0:.4g}", flush=True)
+    return len(diverged), d0
+
+
+def fault_control(torch, dev, cfg, model, prompts, fd):
+    """The greedy contract must fail for a kernel that leaves the newest
+    position of every row out of attention (an off-by-one in kv_lens): run
+    it with that fault wrapped around ``fd.flash_decode`` and demand the
+    failure."""
+    orig = fd.flash_decode
+
+    def dropped_newest(q, pool, table, kv_lens, *, use_flash=True):
+        if use_flash:
+            kv_lens = (kv_lens - 1).clamp_min(0)
+        return orig(q, pool, table, kv_lens, use_flash=use_flash)
+
+    launches = fd.launches
+    fd.flash_decode = dropped_newest
+    try:
+        greedy_contract(torch, dev, cfg, model, prompts, "bf16, faulted", 13,
+                        steps=FAULT_STEPS)
+    except AssertionError as e:
+        caught = str(e)
+    else:
+        raise AssertionError(
+            "greedy contract: a kernel that drops the newest position of "
+            f"every row passed {FAULT_STEPS} steps")
+    finally:
+        fd.flash_decode = orig
+        fd.launches = launches  # these launches are not the main path's
+    print(f"phase 13: negative control: with the newest position of every "
+          f"row left out of the kernel's attention, the contract fails: "
+          f"{caught}", flush=True)
+
+
+def fd_bound(lens, g, rep, dh, quant: bool) -> tuple:
+    """Least time (ms) of one flash_decode launch: the K/V (and scales) of
+    the live positions read once, q, the table and lengths read once, the
+    output written once, over the memory rate; its 4 * rep * dh * len
+    FLOP per (row, KV head) at the fp32 rate."""
+    live = int(sum(lens))
+    elt = 1 if quant else 2
+    kv = live * g * (2 * dh * elt + (2 * 4 if quant else 0))
+    b = len(lens)
+    nbytes = kv + 2 * 4 * b * g * rep * dh + 4 * b
+    flops = 4 * live * g * rep * dh
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes)
+
+
+def phase_fd_timing(torch, dev, fd, lens, card):
+    """flash_decode at the serving shape, its plain version, its bound and
+    one library call (SDPA over K/V already gathered into a contiguous
+    window with a length mask; the gather is not timed), bf16 and int8
+    pools, device time from CUDA-graph replay, in turns."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_decode import kernel as k
+
+    width = -(-LM_MAX_LEN // LM_BLOCK)
+    g, rep, dh = 8, 3, 128
+    kv_lens = torch.from_numpy(np.asarray(lens, np.int32)).to(dev)
+    out = {}
+    for kv in ("bf16", "int8"):
+        q, pool, table = fd_inputs(torch, LM_SLOTS, g, rep, dh, LM_BLOCK,
+                                   width, kv, 17, dev, dh ** -0.5)
+        ks, vs = pool.get("k_scale"), pool.get("v_scale")
+        kern = lambda: k.flash_decode(q, pool["k"], pool["v"], table, kv_lens,
+                                      k_scale=ks, v_scale=vs)
+        plain = lambda: fd.flash_decode_plain(q, pool["k"], pool["v"], table,
+                                              kv_lens, ks, vs)
+        # the library call's inputs: the table window gathered (and for int8
+        # dequantised) into [B, G, W*bs, dh] bf16, a [B, 1, 1, W*bs] mask
+        tab = table.long()
+        kg, vg = pool["k"][tab], pool["v"][tab]
+        if kv == "int8":
+            kg, vg = kg.float() * ks[tab], vg.float() * vs[tab]
+        kg = kg.reshape(LM_SLOTS, width * LM_BLOCK, g, dh).transpose(1, 2)
+        vg = vg.reshape(LM_SLOTS, width * LM_BLOCK, g, dh).transpose(1, 2)
+        kg, vg = kg.to(torch.bfloat16).contiguous(), vg.to(
+            torch.bfloat16).contiguous()
+        qb = q.reshape(LM_SLOTS, g * rep, 1, dh).to(torch.bfloat16)
+        mask = (torch.arange(width * LM_BLOCK, device=dev)[None, :]
+                < kv_lens[:, None])[:, None, None, :]
+        library = lambda: F.scaled_dot_product_attention(
+            qb, kg, vg, attn_mask=mask, scale=1.0, enable_gqa=True)
+        launches = fd.launches
+        p1, k1, k2, p2, l1, l2 = (graph_ms(plain), graph_ms(kern),
+                                  graph_ms(kern), graph_ms(plain),
+                                  graph_ms(library), graph_ms(library))
+        # the same positions spread evenly over the rows: how much of the
+        # kernel's time the longest row sets (one block per row walks it)
+        even = torch.full_like(kv_lens, int(round(float(np.mean(lens)))))
+        k_even = graph_ms(lambda: k.flash_decode(
+            q, pool["k"], pool["v"], table, even, k_scale=ks, v_scale=vs))
+        fd.launches = launches  # timing launches are not the main path's
+        b_ms, b_by, nbytes = fd_bound(lens, g, rep, dh, kv == "int8")
+        blocks_mb = sum(-(-n // LM_BLOCK) * LM_BLOCK for n in lens) * g * (
+            2 * dh * (1 if kv == "int8" else 2)) / 1e6
+        out[kv] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": min(l1, l2)}
+        print(f"phase 15: flash_decode ({kv} pool) at B={LM_SLOTS} G={g} "
+              f"rep={rep} dh={dh} bs={LM_BLOCK} W={width}, mean live length "
+              f"{np.mean(lens):.0f} on {card}: device time (CUDA graph) "
+              f"kernel {k1:.5f}/{k2:.5f} ms, plain {p1:.5f}/{p2:.5f} ms, "
+              f"library {l1:.5f}/{l2:.5f} ms (bf16 SDPA, enable_gqa, length "
+              f"mask, over K/V gathered into a contiguous {width * LM_BLOCK}-"
+              f"position window beforehand; the gather is not timed), bound "
+              f"{b_ms:.5f} ms ({b_by}: {nbytes / 1e6:.2f} MB of live "
+              f"positions, q and out; the live blocks' K/V alone are "
+              f"{blocks_mb:.2f} MB), kernel at {b_ms / min(k1, k2):.1%} of "
+              f"the bound; with every row at the mean length (longest row "
+              f"{max(lens)} now) the kernel takes {k_even:.5f} ms",
+              flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -649,6 +1153,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.resonator_step import ops as rs
     from repro_torch.kernels.resonator_step import ref
+    from repro_torch.kernels.flash_decode import ops as fd
     from repro_torch.kernels.similarity import ops as sim
 
     disable_tf32()
@@ -670,6 +1175,9 @@ def main() -> int:
     phase_int8_factorize(torch, dev, sim)
     phase_rng(torch, dev, card)
     sim_times = phase_sim_timing(torch, dev, sim, card)
+    fd_err = phase_flash_decode(torch, dev, fd)
+    fd_launches, fd_lens = phase_lm_serving(torch, dev, fd, card)
+    fd_times = phase_fd_timing(torch, dev, fd, fd_lens, card)
 
     src = "src/repro_torch/kernels/resonator_step/csrc/resonator_step.cu"
     kernels = [
@@ -688,6 +1196,13 @@ def main() -> int:
          "source": "src/repro_torch/kernels/similarity/csrc/similarity_int8.cu",
          "replaces": "src/repro/kernels/similarity/kernel.py:29",
          "launches": sim_launches, "max_abs_err": sim_err, **sim_times},
+    ] + [
+        {"name": f"flash_decode[{kv}]", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu",
+         "replaces": "src/repro/kernels/flash_decode/kernel.py:87",
+         "launches": fd_launches[kv], "max_abs_err": fd_err[kv],
+         **fd_times[kv]}
+        for kv in ("bf16", "int8")
     ]
     print("kernels: " + ", ".join(
         f"{kd['name']} ({kd['launches']} launches on its path, max |kernel "

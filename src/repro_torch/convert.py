@@ -61,3 +61,36 @@ def qtensor_from_reference(qt, device=DEFAULT_DEVICE) -> QTensor:
                          "int8, float8_e4m3fn or float8_e5m2")
     scale = torch.from_numpy(np.asarray(qt.scale, np.float32).copy())
     return QTensor(v, scale).to(dev)
+
+
+def lm_params_from_reference(np_params: dict, cfg, device=DEFAULT_DEVICE):
+    """The reference's ``transformer.init`` tree (numpy leaves; ``blocks`` a
+    list over pattern positions whose leaves are stacked ``[P, ...]`` over
+    periods) as the port's :class:`repro_torch.nn.transformer.LM` on
+    ``device``.  Layer ``p * period + bi`` takes ``blocks[bi][...][p]``.
+    Matmul weights (embedding and head included) are stored in
+    ``cfg.activ_dtype``, as the reference casts them on every call; norm
+    scales and biases stay float32."""
+    from repro_torch.nn import transformer as T
+
+    dev = resolve(device)
+
+    def leaf(a, dtype):
+        return torch.from_numpy(np.array(a, np.float32)).to(dtype).to(dev)
+
+    def tree(t, dtype, index=None):
+        return {k: tree(v, dtype, index) if isinstance(v, dict)
+                else leaf(v if index is None else np.asarray(v)[index], dtype)
+                for k, v in t.items()}
+
+    wd = cfg.activ_dtype
+    blocks = []
+    for layer in range(cfg.n_layers):
+        period, bi = divmod(layer, cfg.period)
+        src = np_params["blocks"][bi]
+        blocks.append({k: tree(v, torch.float32 if k.startswith("ln") else wd,
+                               period) for k, v in src.items()})
+    head = np_params.get("lm_head")
+    return T.LM(cfg, leaf(np_params["embed"], wd), blocks,
+                tree(np_params["final_ln"], torch.float32),
+                None if head is None else leaf(head, wd))

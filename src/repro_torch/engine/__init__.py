@@ -3,7 +3,7 @@
   * :class:`Engine` — ``submit()/step()/drain()`` continuous batching of
     reasoning requests over the batch-native factorizer;
   * :func:`repro_torch.engine.registry.build` — instantiate registered
-    workloads (``lvrf_rows``; more arrive with later slices of the port);
+    workloads (``lvrf_rows``, ``lm_decode``);
   * :class:`Stage` / :class:`StageGraph` — declared pipelines with adSCH
     cost hints, from which the engine sizes its sweep bursts.
 

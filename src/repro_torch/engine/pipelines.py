@@ -1,9 +1,15 @@
-"""Built-in serving pipelines of the port: LVRF row decoding.
+"""Built-in serving pipelines of the port: LVRF row decoding, LM decode.
 
 ``lvrf_rows`` decodes bipolar MAP row encodings against permutation-rolled
 value atoms (F=3, M=n_values, D=2048, deterministic).  With
 ``fused_step=True`` every sweep is one launch of the CUDA resonator kernel.
-NVSA abduction and LM decoding wait for later slices of the port.
+
+``lm_decode`` is transformer serving (``launch/serve.ServeEngine``'s
+prefill/decode) re-expressed as a registered StageGraph + ``step_ops``, so
+the same adSCH machinery
+(:func:`repro_torch.engine.engine.derive_sweeps_per_step`) prices LM steps; the request loop lives in
+:class:`repro_torch.runtime.LMEngine`.  NVSA abduction waits for a later
+slice of the port (ROADMAP Queue A item 2).
 """
 from __future__ import annotations
 
@@ -77,3 +83,92 @@ def lvrf_rows(generator, *, cfg=None, rules=("constant", "progression_p1",
                 "reconstruction_sim": res.reconstruction_sim}
 
     return ServeSpec("lvrf_rows", cbs, fcfg, None, graph, postprocess)
+
+
+def lm_stack_ops(cfg, tokens: int, tag: str, *, symbolic: bool,
+                 lm_head: bool, kv_window: int = 0) -> tuple:
+    """adSCH cost hints for pushing ``tokens`` tokens through one LM stack.
+
+    Coarse by design (layers folded into the GEMM row dim, attention scored
+    as its projections): the scheduler only needs relative magnitudes to
+    size the decode burst against the prefill window.
+
+    ``kv_window > 0`` adds the decode-attention KV read — the term that
+    dominates decode memory traffic: every token reads ``kv_window`` cached
+    positions per layer (contiguous: the full ``max_len`` row the dense
+    path touches; paged: ``ceil(len/block) * block`` — the blocks the
+    flash-decode kernel reads).  Priced as a SIMD op (pure data movement),
+    with int8 caches reading half the elements of bf16.
+    """
+    d, L = cfg.d_model, cfg.n_layers
+    hd = cfg.head_dim if cfg.head_dim is not None else d // cfg.n_heads
+    d_ff_in = 2 * cfg.d_ff if cfg.mlp_kind == "swiglu" else cfg.d_ff
+    ops = [
+        Op(f"{tag}_qkv", "gemm",
+           (tokens * L, d, (cfg.n_heads + 2 * cfg.n_kv_heads) * hd),
+           symbolic=symbolic),
+    ]
+    attn_deps = (f"{tag}_qkv",)
+    if kv_window:
+        scale = 0.5 if cfg.kv_cache_dtype == "int8" else 1.0
+        elems = int(tokens * L * kv_window * cfg.n_kv_heads * hd * 2 * scale)
+        ops.append(Op(f"{tag}_kv_gather", "simd", (max(elems, 1),),
+                      deps=(f"{tag}_qkv",), symbolic=symbolic))
+        attn_deps = (f"{tag}_qkv", f"{tag}_kv_gather")
+    ops += [
+        Op(f"{tag}_attn_out", "gemm", (tokens * L, cfg.n_heads * hd, d),
+           deps=attn_deps, symbolic=symbolic),
+        Op(f"{tag}_mlp_in", "gemm", (tokens * L, d, d_ff_in),
+           deps=(f"{tag}_attn_out",), symbolic=symbolic),
+        Op(f"{tag}_mlp_out", "gemm", (tokens * L, cfg.d_ff, d),
+           deps=(f"{tag}_mlp_in",), symbolic=symbolic),
+    ]
+    if lm_head:
+        ops.append(Op(f"{tag}_lm_head", "gemm", (tokens, d, cfg.vocab),
+                      deps=(f"{tag}_mlp_out",), symbolic=symbolic))
+    return tuple(ops)
+
+
+@register("lm_decode")
+def lm_decode(generator, *, cfg, batch: int = 4, prompt_len: int = 16,
+              max_len: int | None = None,
+              kv_block: int | None = None) -> ServeSpec:
+    """LM continuous batching as a registered workload (host code only; the
+    ``generator`` is unused and may be None).
+
+    ``cfg`` is a :class:`repro_torch.nn.transformer.ModelConfig`.  The
+    StageGraph maps LM serving onto the paper's interleave vocabulary:
+    prefill is the big dense block (neural), per-token decode the small
+    memory-bound kernel stream (declared ``symbolic`` so the adSCH policy
+    fills it into leftover cells while another request's prefill owns the
+    array — the continuous-batching overlap question of Fig. 13b).
+    ``step_ops`` prices ONE decode token over the whole slot batch, so
+    :func:`repro_torch.engine.engine.derive_sweeps_per_step` returns how
+    many decode steps fit a prefill window — the burst
+    :class:`repro_torch.runtime.LMEngine` runs between retirement scans.
+
+    The decode stage carries the KV-read term at the ``prompt_len``
+    operating point: contiguous caches read the full ``max_len`` row per
+    token, paged caches (``kv_block`` set) ``ceil((prompt_len+1)/kv_block)``
+    blocks.
+    """
+    if kv_block is not None:
+        kv_window = -(-(prompt_len + 1) // kv_block) * kv_block
+    else:
+        kv_window = max_len if max_len is not None else prompt_len
+    graph = StageGraph("lm_decode", (
+        Stage("prefill", None, symbolic=False,
+              cost_ops=lm_stack_ops(cfg, batch * prompt_len, "prefill",
+                                    symbolic=False, lm_head=False)),
+        Stage("decode", None, symbolic=True,
+              cost_ops=lm_stack_ops(cfg, batch, "decode", symbolic=True,
+                                    lm_head=True, kv_window=kv_window)),
+    ))
+
+    def step_ops(slots, *, data_shards=1, model_shards=1):
+        del model_shards  # LM tensor parallelism: out of the cell model's scope
+        return list(lm_stack_ops(cfg, -(-slots // data_shards), "decode",
+                                 symbolic=True, lm_head=True,
+                                 kv_window=kv_window))
+
+    return ServeSpec("lm_decode", graph=graph, step_ops=step_ops)

@@ -156,3 +156,126 @@ def test_rng_stream_on_the_card_equals_the_cpu(cuda, tag):
     torch.testing.assert_close(
         rng.normal(keys.to(cuda), sweep.to(cuda), tag, 3, 1001).cpu(),
         rng.normal(keys, sweep, tag, 3, 1001), atol=1e-6, rtol=0)
+
+
+# -- flash_decode ------------------------------------------------------------
+
+# every block-boundary case for bs = 8, W = 3 (tests/test_flash_decode.py),
+# plus rows of length zero, which give exact zeros
+FD_LENS = [(1, 1, 1), (3, 8, 9), (8, 16, 24), (9, 17, 23), (16, 24, 8),
+           (24, 24, 24), (0, 5, 0)]
+
+
+def _fd_inputs(b, g, rep, dh, bs, width, kv_dtype, seed, dev):
+    """A random pool, q and a table giving each row `width` distinct blocks
+    (the last physical block stays the trash block)."""
+    from repro_torch.nn.layers import _quant_kv
+
+    rng = np.random.default_rng(seed)
+    nbp = b * width + 1
+    q = torch.from_numpy(rng.standard_normal((b, g, rep, dh), np.float32))
+    k = torch.from_numpy(rng.standard_normal((nbp, bs, g, dh), np.float32))
+    v = torch.from_numpy(rng.standard_normal((nbp, bs, g, dh), np.float32))
+    if kv_dtype == "int8":
+        (kq, ks), (vq, vs) = _quant_kv(k), _quant_kv(v)
+        pool = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    else:
+        pool = {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
+    table = torch.from_numpy(
+        rng.permutation(b * width).astype(np.int32).reshape(b, width))
+    return (q.to(dev), {n: t.to(dev) for n, t in pool.items()},
+            table.to(dev))
+
+
+def _fd_check(q, pool, table, lens):
+    from repro_torch.kernels.flash_decode import ops as fd
+
+    before = fd.launches
+    got = fd.flash_decode(q, pool, table, lens)
+    want = fd.flash_decode_plain(q, pool["k"], pool["v"], table, lens,
+                                 pool.get("k_scale"), pool.get("v_scale"))
+    assert fd.launches == before + 1
+    torch.cuda.synchronize()
+    # the reference's kernel tolerance: fp32 online softmax against one
+    # dense softmax, summed in another order
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("lens", FD_LENS)
+def test_flash_decode_kernel_at_every_block_boundary(cuda, kv_dtype, lens):
+    q, pool, table = _fd_inputs(3, 2, 2, 16, 8, 3, kv_dtype, sum(lens), cuda)
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    got = _fd_check(q, pool, table, kv_lens)
+    for b, n in enumerate(lens):
+        if n == 0:
+            assert torch.equal(got[b], torch.zeros_like(got[b]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("g,rep,dh,bs,width", [
+    (8, 3, 128, 16, 35),  # Llama 3.2 3B: 8 KV heads, 24 query heads
+    (2, 4, 64, 5, 7),  # a block size that does not divide the tile
+    (1, 8, 32, 64, 2),  # the largest rep, blocks longer than a tile
+])
+def test_flash_decode_kernel_at_serving_widths(cuda, kv_dtype, g, rep, dh,
+                                               bs, width):
+    b = 6
+    q, pool, table = _fd_inputs(b, g, rep, dh, bs, width, kv_dtype, dh, cuda)
+    cap = bs * width
+    lens = torch.tensor([1, cap, cap // 2, 17, 0, cap - 1],
+                        dtype=torch.int32, device=cuda)
+    _fd_check(q, pool, table, lens)
+
+
+@pytest.mark.cuda
+def test_flash_decode_kernel_refuses_bad_inputs(cuda):
+    from repro_torch.kernels.flash_decode import kernel as fdk
+
+    q, pool, table = _fd_inputs(2, 2, 2, 16, 8, 2, "int8", 0, cuda)
+    lens = torch.tensor([3, 9], dtype=torch.int32, device=cuda)
+    k, v = pool["k"], pool["v"]
+    with pytest.raises(ValueError, match="requires k_scale/v_scale"):
+        fdk.flash_decode(q, k, v, table, lens)
+    s = dict(k_scale=pool["k_scale"], v_scale=pool["v_scale"])
+    with pytest.raises(ValueError, match="CUDA"):
+        fdk.flash_decode(q.cpu(), k, v, table, lens, **s)
+    with pytest.raises(ValueError, match="float32"):
+        fdk.flash_decode(q.double(), k, v, table, lens, **s)
+    with pytest.raises(ValueError, match="int32"):
+        fdk.flash_decode(q, k, v, table.long(), lens, **s)
+    with pytest.raises(ValueError, match="contiguous"):
+        fdk.flash_decode(q.transpose(0, 1).contiguous().transpose(0, 1), k,
+                         v, table, lens, **s)
+    with pytest.raises(ValueError, match="head_dim"):
+        fdk.flash_decode(q[..., :8].contiguous(), k[..., :8].contiguous(),
+                         v[..., :8].contiguous(), table, lens,
+                         k_scale=pool["k_scale"], v_scale=pool["v_scale"])
+    q9 = torch.zeros((2, 2, 9, 16), device=cuda)
+    with pytest.raises(ValueError, match="query heads"):
+        fdk.flash_decode(q9, k, v, table, lens, **s)
+
+
+@pytest.mark.cuda
+def test_paged_smoke_decode_launches_the_kernel_once_per_layer(cuda):
+    from repro_torch.configs import registry
+    from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.launch.serve import ServeEngine
+    from repro_torch.lm.paging import PagedConfig
+    from repro_torch.nn import transformer as T
+
+    cfg = registry.get("llama3.2-3b").smoke()
+    model = T.init(cfg, 0, cuda)
+    eng = ServeEngine(cfg, model, 3, 32, device=cuda,
+                      paged=PagedConfig(block_size=8, prefill_chunk=4))
+    for s, n in enumerate((1, 5, 9)):
+        eng.add_request(s, np.arange(n) * 7 % cfg.vocab)
+    before = fd.launches
+    for _ in range(6):
+        assert eng.step() is not None
+        assert bool(torch.isfinite(eng.last_logits).all())
+    assert fd.launches - before == cfg.n_layers * 6
+    assert eng.decode_dispatches == 6

@@ -36,7 +36,8 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 20  # every package and module of the port
+    assert int(count) >= 54  # every package and module of the port, the LM
+    # serving slice's (nn, configs, lm, launch, runtime, flash_decode) included
     assert bad == "[]"
 
 
@@ -52,7 +53,12 @@ def _imported(path: Path) -> set:
 
 def test_no_source_of_the_port_imports_jax_or_the_reference():
     files = sorted(PORT.rglob("*.py")) + [CHIP_SMOKE]
-    assert len(files) >= 20
+    assert len(files) >= 56
+    names = {p.relative_to(PORT).as_posix() for p in files[:-1]}
+    assert {"nn/layers.py", "nn/transformer.py", "lm/model.py",
+            "lm/paging.py", "lm/sampling.py", "launch/serve.py",
+            "runtime/lm.py", "configs/registry.py",
+            "kernels/flash_decode/ops.py"} <= names
     for path in files:
         for name in _imported(path):
             top = name.split(".")[0]
