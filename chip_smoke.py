@@ -45,7 +45,19 @@ port from the checkout's sources (into ``build/kernels/``), then:
      checks, and the greedy contract on 4 prompts;
  15. times flash_decode, its plain version, its bound and one SDPA call at
      the serving shape, bf16 and int8 (CUDA-graph replay);
- 16. prints one JSON line describing every kernel, the card line, and as
+ 16. holds the model-shard (LOCAL) resonator kernel against its plain
+     version, bitwise, at the reference test's shapes and at the sharded
+     serving shape (64 rows a shard, F = 3, M_loc = 5, D = 2048), and two
+     shards' gathered sum against the masked kernel;
+ 17. serves the 512 LVRF rows through ``ShardedEngine`` on a 4 x 2 mesh of
+     logical shards on the card, rows placement (one local launch per shard
+     per sweep, F + 1 model reductions), then replicated placement, each
+     bitwise equal to ``Engine(slots=256)`` on the same requests; then 256
+     Tab. VII requests at fp32 (unitary, stochastic) under rows placement
+     against ``Engine``, printing the rows that differ;
+ 18. times the LOCAL kernel, its plain version and its bound at the sharded
+     serving shape (CUDA-graph replay);
+ 19. prints one JSON line describing every kernel, the card line, and as
      the last line ``{"ok": true, "device": {...}}``.
 
 A failed phase raises, and the script exits nonzero.  Without a CUDA device,
@@ -1137,6 +1149,296 @@ def phase_fd_timing(torch, dev, fd, lens, card):
     return out
 
 
+# The sharded engine (phases 16-18): a 4 x 2 mesh of logical shards on the
+# card, the engine's 256 slots over the data axis, LVRF's 10 rows over the
+# model axis; the reference test's local-kernel shapes (tests/test_kernels.py).
+MESH_DATA, MESH_MODEL = 4, 2
+N_LOC, M_LOC = ENGINE_ROWS // MESH_DATA, M // MESH_MODEL
+LOCAL_TEST_N, LOCAL_TEST_M, LOCAL_TEST_D = (1, 7, 130), 12, 256
+TAB7_REQUESTS = 256
+
+
+def local_bound(n: int, m_loc: int) -> tuple:
+    """Least time (ms) of one LOCAL launch: q, est, the row block and its
+    mask read once, the raw scores and the fp32 partial projection written
+    once; the scores' and projection's FMAs and the unbind products at the
+    fp32 rate."""
+    nbytes = 4 * (n * D + n * F * D + F * m_loc * D + F * m_loc
+                  + n * F * m_loc + n * F * D)
+    flops = 4 * n * F * m_loc * D + n * F * D * (F + 1)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes)
+
+
+def phase_local_kernel(rs, ref, torch, dev) -> float:
+    """The LOCAL kernel against its plain version on each shard's row block
+    and mask slice, bitwise; the shards' padded scores and partial
+    projections, summed, masked and saturated, against the masked kernel.
+    Returns the max |kernel - plain|."""
+    gen = torch.Generator().manual_seed(41)
+    err = 0.0
+    cases = [(n, LOCAL_TEST_M, LOCAL_TEST_D, (5, 12, 7))
+             for n in LOCAL_TEST_N] + [(N_LOC, M, D, (5, 6, 10))]
+    for n, m, d, sizes in cases:
+        cbs = bipolar(gen, (F, m, d), dev)
+        qs, est = bipolar(gen, (n, d), dev), bipolar(gen, (n, F, d), dev)
+        mask = torch.stack([torch.arange(m) < s for s in sizes]).to(dev)
+        m_loc = m // MESH_MODEL
+        for act in ("identity", "abs"):
+            acc_a = torch.zeros((n, F, m), device=dev)
+            acc_p = torch.zeros((n, F, d), device=dev)
+            for s in range(MESH_MODEL):
+                blk = cbs[:, s * m_loc:(s + 1) * m_loc].contiguous()
+                mk = mask[:, s * m_loc:(s + 1) * m_loc]
+                before = rs.local_launches
+                got = rs.fused_resonator_step_batch_local(qs, est, blk, mk,
+                                                          act)
+                want = ref.resonator_step_batch_local_ref(qs, est, blk, mk,
+                                                          act)
+                torch.cuda.synchronize()
+                if rs.local_launches != before + 1:
+                    raise AssertionError("the LOCAL wrapper did not launch "
+                                         "its kernel once")
+                diff = max((g - w).abs().max().item()
+                           for g, w in zip(got, want))
+                err = max(err, diff)
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise AssertionError(
+                        f"LOCAL kernel != plain version at N={n} M_loc="
+                        f"{m_loc} D={d} {act} shard {s}: max |diff| {diff}")
+                acc_a[..., s * m_loc:(s + 1) * m_loc] += got[0]
+                acc_p += got[1]
+            a_k, e_k = rs.fused_resonator_step_batch_masked(qs, est, cbs,
+                                                            mask, act)
+            if not (torch.equal(torch.where(mask[None], acc_a, -1e9), a_k)
+                    and torch.equal(torch.where(acc_p >= 0, 1.0, -1.0),
+                                    e_k)):
+                raise AssertionError(f"{MESH_MODEL} shards' gathered LOCAL "
+                                     f"outputs != the masked kernel at N={n}")
+        print(f"phase 16: LOCAL kernel at N={n} F={F} M_loc={m_loc} D={d} "
+              f"(masks {sizes}, identity and abs): each of {MESH_MODEL} "
+              f"shards bitwise equal to the plain version; the gathered sum "
+              f"bitwise equal to the masked kernel", flush=True)
+    return err
+
+
+def _same(a, b) -> bool:
+    import numpy as np
+
+    return all(np.array_equal(getattr(a, f), getattr(b, f))
+               for f in a._fields)
+
+
+def phase_sharded(torch, dev, rs, card):
+    """LVRF at full width through ShardedEngine on a 4 x 2 mesh of logical
+    shards on the card, rows then replicated placement, each against
+    Engine(slots=256) on the same requests; then Tab. VII at fp32 under rows
+    placement against Engine.  Returns the rows run's local launches and
+    the serving numbers."""
+    import numpy as np
+
+    from repro_torch import engine, obs
+    from repro_torch.core import factorizer as fz
+    from repro_torch.device import generator
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lvrf
+
+    cfg = lvrf.LVRFConfig()
+    vals = np.random.default_rng(1).integers(0, cfg.n_values, (512, 3))
+    atoms = lvrf.init_atoms(generator(0), cfg, device=dev)
+    spec = engine.registry.build("lvrf_rows", 0, fused_step=True,
+                                 atoms=atoms, device=dev)
+    qs = lvrf.encode_row(atoms, vals, cfg)
+    keys = fz.draw_keys(8, len(vals))
+
+    def serve(eng, n=len(vals)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = [eng.submit(qs[i], keys=keys[i][None]) for i in range(n)]
+        done = {r.id: r for r in eng.drain()}
+        torch.cuda.synchronize()
+        return [done[i] for i in ids], time.perf_counter() - t0
+
+    def sharded(placement):
+        mesh = make_host_mesh(MESH_DATA, MESH_MODEL, dev)
+        return mesh, engine.ShardedEngine(
+            spec, mesh=mesh, codebook_placement=placement, slots=ENGINE_ROWS)
+
+    serve(sharded("rows")[1], 8)  # warm-up
+    base, base_wall = serve(engine.Engine(spec, slots=ENGINE_ROWS,
+                                          device=dev))
+    numbers = {"engine_wall": base_wall}
+    for placement in ("rows", "replicated"):
+        mesh, eng = sharded(placement)
+        rs.launches = rs.masked_launches = rs.local_launches = 0
+        got, wall = serve(eng)  # the sharded path's run
+        counts = (rs.launches, rs.masked_launches, rs.local_launches)
+        sweeps, steps = eng.sweeps_total, eng.steps_total
+        wrong = sum(not (r.result["values"][0] == v).all()
+                    for r, v in zip(got, vals))
+        if wrong:
+            raise AssertionError(f"sharded ({placement}): {wrong} of "
+                                 f"{len(vals)} LVRF rows decoded wrong")
+        if not all(_same(a.factorization, b.factorization)
+                   for a, b in zip(base, got)):
+            raise AssertionError(f"sharded ({placement}): results differ "
+                                 "from Engine's")
+        red = dict(mesh.reductions)
+        if red["data"] != sweeps + steps:
+            raise AssertionError(f"data reductions {red['data']} != sweeps "
+                                 f"+ bursts = {sweeps} + {steps}")
+        if placement == "rows":
+            want_model = (F + 1) * sweeps + 2 * eng.decodes_total
+            if (counts != (0, 0, MESH_DATA * MESH_MODEL * sweeps)
+                    or sweeps == 0 or red["model"] != want_model):
+                raise AssertionError(
+                    f"rows placement: launches (dense, masked, local) "
+                    f"{counts} for {sweeps} sweeps, model reductions "
+                    f"{red['model']} != (F + 1) x sweeps + 2 x decodes = "
+                    f"{want_model}")
+        elif counts != (MESH_DATA * sweeps, 0, 0) or red["model"] != 0:
+            raise AssertionError(f"replicated placement: launches {counts} "
+                                 f"for {sweeps} sweeps, model reductions "
+                                 f"{red['model']}")
+        snap = eng.snapshot()
+        numbers[placement] = {"wall": wall, "snap": snap, "sweeps": sweeps,
+                              "launches": counts}
+        print(f"phase 17: ShardedEngine({placement}, mesh {MESH_DATA}x"
+              f"{MESH_MODEL} logical shards on {card}, slots={ENGINE_ROWS}): "
+              f"{len(vals)} LVRF rows all decoded correctly and bitwise equal "
+              f"to Engine(slots={ENGINE_ROWS}); sweeps_per_step="
+              f"{eng.sweeps_per_step} sweeps_total={sweeps} steps={steps}; "
+              f"launches (dense, masked, local) {counts}; reductions model "
+              f"{red['model']} (decodes {eng.decodes_total}), data "
+              f"{red['data']}; wall {wall * 1e3:.2f} ms, "
+              f"{len(vals) / wall:.1f} requests/s, p50 "
+              f"{snap['latency_p50_ms']:.3f} ms, p99 "
+              f"{snap['latency_p99_ms']:.3f} ms", flush=True)
+    print(f"phase 17: Engine(slots={ENGINE_ROWS}) on the same requests, same "
+          f"card, just before: wall {base_wall * 1e3:.2f} ms, "
+          f"{len(vals) / base_wall:.1f} requests/s", flush=True)
+    # The rows run again under a span recorder: where the wall goes.
+    rec = obs.Recorder()
+    launches = rs.local_launches
+    traced = engine.ShardedEngine(
+        spec, mesh=make_host_mesh(MESH_DATA, MESH_MODEL, dev),
+        codebook_placement="rows", slots=ENGINE_ROWS, obs=rec)
+    _, wall = serve(traced)
+    rs.local_launches = launches  # not the counted run's launches
+    spent: dict = {}
+    for sp in rec.spans.snapshot():
+        if sp.duration is not None:
+            spent[sp.name] = spent.get(sp.name, 0.0) + sp.duration
+    print(f"phase 17: traced rows run: wall {wall * 1e3:.2f} ms, steps "
+          f"{spent['step'] * 1e3:.2f} ms (fill {spent['fill'] * 1e3:.2f}, "
+          f"sweep-burst {spent['sweep-burst'] * 1e3:.2f} for "
+          f"{traced.sweeps_total} sweeps, retire {spent['retire'] * 1e3:.2f}"
+          f" ms)", flush=True)
+    phase_sharded_unitary(torch, dev, card)
+    return numbers
+
+
+def phase_sharded_unitary(torch, dev, card):
+    """Tab. VII 2x2Grid at fp32 (unitary, D = 1024, B = 4, F = 4, M = 10,
+    noise 0.3, restarts every 20), 256 requests, rows placement against
+    Engine on the card with the same keys.  The projection's sum over the
+    model shards is reassociated, and a row that hovers amplifies that last
+    ulp sweep by sweep: such rows may settle elsewhere, and are listed.  Of
+    the rows Engine settles within FAST_SWEEPS sweeps at most 2 % may
+    differ (a near tie); both accuracies must reach 0.90 and agree within
+    0.06 (the rows that part are about a third, each a fresh stochastic
+    run: the difference has a spread near 0.017)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import engine
+    from repro_torch.core import factorizer as fz
+    from repro_torch.core import vsa
+    from repro_torch.device import generator
+    from repro_torch.launch.mesh import make_host_mesh
+
+    cfg = dataclasses.replace(tab_cfg(fz, vsa), codebook_fmt="fp32")
+    cbs = fz.make_codebooks(generator(1), cfg, device=dev)
+    idx = np.random.default_rng(4).integers(0, 10, (TAB7_REQUESTS, 4))
+    qs = fz.bind_combo(cbs, torch.from_numpy(idx).to(dev), cfg.vsa)
+    keys = fz.draw_keys(7, TAB7_REQUESTS)
+    spec = engine.ServeSpec("tab07_2x2grid_fp32", codebooks=cbs, cfg=cfg)
+
+    def serve(eng):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = [eng.submit(qs[i], keys=keys[i][None])
+               for i in range(TAB7_REQUESTS)]
+        done = {r.id: r for r in eng.drain()}
+        torch.cuda.synchronize()
+        return ([done[i].factorization for i in ids],
+                time.perf_counter() - t0, eng)
+
+    base, t_base, eng_b = serve(engine.Engine(spec, slots=ENGINE_ROWS,
+                                              device=dev))
+    got, t_rows, eng_r = serve(engine.ShardedEngine(
+        spec, mesh=make_host_mesh(MESH_DATA, MESH_MODEL, dev),
+        codebook_placement="rows", slots=ENGINE_ROWS))
+    differ, fast_differ, fast = [], [], 0
+    for i, (a, b) in enumerate(zip(base, got)):
+        same = all(np.array_equal(getattr(a, f), getattr(b, f))
+                   for f in ("indices", "converged", "iterations"))
+        fast += int(a.iterations[0] <= FAST_SWEEPS)
+        if not same:
+            differ.append(f"{i} ({int(a.iterations[0])} -> "
+                          f"{int(b.iterations[0])} sweeps"
+                          f"{'' if np.array_equal(a.indices, b.indices) else ', other indices'})")
+            if a.iterations[0] <= FAST_SWEEPS:
+                fast_differ.append(i)
+    acc = [float(np.mean([(r.indices[0] == t).all() for r, t in zip(run, idx)]))
+           for run in (base, got)]
+    print(f"phase 17: Tab. VII 2x2Grid at fp32, {TAB7_REQUESTS} requests, "
+          f"rows placement on {MESH_DATA}x{MESH_MODEL} logical shards against "
+          f"Engine on {card}: accuracy {acc[1]:.4f} (Engine {acc[0]:.4f}); "
+          f"{len(differ)} of {TAB7_REQUESTS} rows differ in indices, "
+          f"converged or iterations ({len(differ) / TAB7_REQUESTS:.2%}): "
+          f"[{'; '.join(differ)}]; {len(fast_differ)} of the {fast} rows "
+          f"Engine settles within {FAST_SWEEPS} sweeps differ; wall "
+          f"{t_rows * 1e3:.1f} ms for {eng_r.sweeps_total} sweeps (Engine "
+          f"{t_base * 1e3:.1f} ms for {eng_b.sweeps_total})", flush=True)
+    if (len(fast_differ) > 0.02 * fast or min(acc) < 0.90
+            or abs(acc[0] - acc[1]) > 0.06):
+        raise AssertionError(f"Tab. VII fp32 rows placement: fast rows "
+                             f"{fast_differ} differ, or accuracy {acc[1]} "
+                             f"against Engine's {acc[0]}")
+
+
+def phase_local_timing(torch, dev, rs, ref, card):
+    """The LOCAL kernel at the sharded serving shape (one shard's 64 rows
+    and 5 of LVRF's 10 rows), its plain version and its bound, device time
+    from CUDA-graph replay in turns."""
+    from repro_torch.kernels.resonator_step import kernel as k
+
+    gen = torch.Generator().manual_seed(43)
+    qs = bipolar(gen, (N_LOC, D), dev)
+    est = bipolar(gen, (N_LOC, F, D), dev)
+    blk = bipolar(gen, (F, M_LOC, D), dev)
+    mask = torch.ones((F, M_LOC), dtype=torch.bool, device=dev)
+    kern = lambda: k.resonator_step_batch_local(qs, est, blk, mask)
+    plain = lambda: ref.resonator_step_batch_local_ref(qs, est, blk, mask)
+    launches = rs.local_launches
+    p1, k1, k2, p2 = graph_ms(plain), graph_ms(kern), graph_ms(kern), \
+        graph_ms(plain)
+    hk = cuda_ms(kern)
+    rs.local_launches = launches  # timing launches are not the main path's
+    b_ms, b_by, nbytes = local_bound(N_LOC, M_LOC)
+    print(f"phase 18: LOCAL kernel at N={N_LOC} F={F} M_loc={M_LOC} D={D} on "
+          f"{card}: device time (CUDA graph) kernel {k1:.5f}/{k2:.5f} ms, "
+          f"plain {p1:.5f}/{p2:.5f} ms, bound {b_ms:.5f} ms ({b_by}: "
+          f"{nbytes / 1e6:.2f} MB), kernel at {b_ms / min(k1, k2):.1%} of the "
+          f"bound; per call back to back, host included: kernel {hk:.4f} ms",
+          flush=True)
+    return {"ms": min(k1, k2), "plain_ms": min(p1, p2), "bound_ms": b_ms,
+            "bound_by": b_by}
+
+
 def main() -> int:
     import torch
 
@@ -1178,6 +1480,9 @@ def main() -> int:
     fd_err = phase_flash_decode(torch, dev, fd)
     fd_launches, fd_lens = phase_lm_serving(torch, dev, fd, card)
     fd_times = phase_fd_timing(torch, dev, fd, fd_lens, card)
+    local_err = phase_local_kernel(rs, ref, torch, dev)
+    sharded = phase_sharded(torch, dev, rs, card)
+    local_times = phase_local_timing(torch, dev, rs, ref, card)
 
     src = "src/repro_torch/kernels/resonator_step/csrc/resonator_step.cu"
     kernels = [
@@ -1192,6 +1497,11 @@ def main() -> int:
          "launches": masked_launches,
          "max_abs_err": err["resonator_step_batch_masked"],
          **times["resonator_step_batch_masked"], "library_ms": None},
+        {"name": "resonator_step_batch_local", "route": "cuda",
+         "source": src,
+         "replaces": "src/repro/kernels/resonator_step/kernel.py:218",
+         "launches": sharded["rows"]["launches"][2],
+         "max_abs_err": local_err, **local_times, "library_ms": None},
         {"name": "similarity_int8", "route": "cuda",
          "source": "src/repro_torch/kernels/similarity/csrc/similarity_int8.cu",
          "replaces": "src/repro/kernels/similarity/kernel.py:29",

@@ -33,8 +33,14 @@ factor and the stream, so it does not depend on the row's slot or batch.
 The reference's ``jax.random`` streams are different numbers; stochastic
 runs are compared with it statistically.
 
-Not ported yet, and refused with ``NotImplementedError``: the model-sharded
-mode (``model_axis``).
+**Model-sharded mode** (``model_axis`` set, :func:`make_resonator`): the
+codebook rows are split over the model axis of a
+:class:`repro_torch.launch.mesh.Mesh`, one row block per model shard on its
+own device, and the slot rows over its data axis.  One controller drives
+every shard in lockstep, so the resonator's members then take and return
+one entry per data shard, and every cross-shard sum is one
+:meth:`~repro_torch.launch.mesh.Mesh.reduce` call: the reference's
+``psum``.
 """
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ import dataclasses
 from typing import Literal, NamedTuple
 
 import torch
+import torch.nn.functional as nnf
 
 from repro_torch.core import rng, vsa
 from repro_torch.core.quantization import QTensor, quantize, quantized_matvec
@@ -244,19 +251,78 @@ def superposition_init(codebooks, cfg: FactorizerConfig,
                               dense_cb), cfg)
 
 
-def _check_supported(cfg: FactorizerConfig, model_axis) -> None:
-    if model_axis is not None:
-        raise NotImplementedError(
-            "the model-sharded resonator (model_axis) waits for the sharded "
-            "engine (ROADMAP Queue A: sharded engine)")
-    if cfg.max_iters >= rng.MAX_SWEEP:
-        raise ValueError(f"max_iters={cfg.max_iters} exceeds the noise "
-                         f"counter's {rng.MAX_SWEEP} sweeps")
+_NEG = -1e9  # score of an invalid codebook row: never the argmax
+
+
+def _active(cfg: FactorizerConfig, s: _State) -> torch.Tensor:
+    return torch.logical_and(~s.done, s.iters < cfg.max_iters)
+
+
+def _noise(s: _State, tag: int, F: int, n: int, std: float):
+    """Per factor, standard normals [N, n] of stream ``tag`` at each row's
+    own sweep index; F Nones where ``std`` is 0."""
+    if not std:
+        return [None] * F
+    return rng.normal(s.keys, s.iters, tag, F, n).unbind(1)
+
+
+def _settle(cfg: FactorizerConfig, qs, s: _State, alpha, est,
+            atoms) -> _State:
+    """The end of a sweep, shared by both modes: do the hard-decoded atoms
+    ``atoms`` [N, F, D] reconstruct each query?  Then freeze converged and
+    budget-exhausted rows, and restart stuck ones."""
+    sim = vsa.similarity(vsa.bind_all(atoms, cfg.vsa, axis=-2), qs)  # [N]
+    act = _active(cfg, s)
+    # Freeze converged / budget-exhausted queries: est/sim/iters stop.
+    est = torch.where(act[:, None, None], est, s.est)
+    sim = torch.where(act, sim, s.sim)
+    iters = s.iters + act.to(torch.int32)
+    done = s.done | (sim >= cfg.conv_threshold)
+    if cfg.restart_every > 0:  # escape limit cycles by re-randomising
+        do_restart = act & ~done & (iters % cfg.restart_every == 0)
+        rows = torch.nonzero(do_restart).squeeze(1)  # one host sync
+        if rows.numel():
+            F, D = est.shape[1:]
+            z = rng.normal(s.keys[rows], iters[rows], rng.RESTART, F, D)
+            est[rows] = _norm(z, cfg)  # est is this sweep's own tensor
+    return _State(est, iters, done, sim, s.keys, s.it + 1)
+
+
+def _init_state(init_est, qs, keys) -> _State:
+    N, (F, D), dev = qs.shape[0], init_est.shape, init_est.device
+    keys = torch.as_tensor(keys, dtype=torch.int64, device=dev)
+    rng.check_keys(keys)
+    return _State(init_est.expand(N, F, D).clone(),
+                  torch.zeros(N, dtype=torch.int32, device=dev),
+                  torch.zeros(N, dtype=torch.bool, device=dev),
+                  torch.full((N,), -1.0, dtype=torch.float32, device=dev),
+                  keys, 0)
+
+
+def _refill_state(init_est, qs, s: _State, slots, new_qs, keys):
+    """Slot fresh queries into rows ``slots``; new ``(qs, state)``, the
+    inputs untouched."""
+    dev = init_est.device
+    slots = torch.as_tensor(slots, dtype=torch.long, device=dev)
+    qs, est = qs.clone(), s.est.clone()
+    iters, done, sim = s.iters.clone(), s.done.clone(), s.sim.clone()
+    skeys = s.keys.clone()
+    keys = torch.as_tensor(keys, dtype=torch.int64, device=dev)
+    rng.check_keys(keys)
+    qs[slots] = new_qs
+    est[slots] = init_est
+    iters[slots] = 0
+    done[slots] = False
+    sim[slots] = -1.0
+    skeys[slots] = keys
+    return qs, _State(est, iters, done, sim, skeys, s.it)
 
 
 def make_resonator(codebooks, cfg: FactorizerConfig,
                    valid_mask: torch.Tensor | None = None, *,
-                   model_axis: str | None = None, fused=None) -> Resonator:
+                   model_axis=None, full_rows: int | None = None,
+                   init_est: torch.Tensor | None = None,
+                   fused=None) -> Resonator:
     """Build the sweep machinery for one codebook set (see :class:`Resonator`).
 
     A query row freezes once it converges (``done``) or exhausts its
@@ -270,8 +336,34 @@ def make_resonator(codebooks, cfg: FactorizerConfig,
     for configs where :func:`fused_sweep_eligible` holds: unmasked batches
     run the dense kernel, masked ones the mask-aware one.  All tensors stay
     on the codebooks' device.
+
+    **Model-sharded mode**: ``model_axis`` is a mesh's model axis
+    (``mesh.axis("model")``) and ``codebooks`` one dense row block
+    ``[F, M / model, D]`` per model shard, in shard order; ``valid_mask``
+    stays FULL ``[F, M]`` and ``full_rows`` gives M where there is no mask.
+    ``init_est`` is required, computed by :func:`superposition_init` from the
+    full codebooks (a shard-wise bundle would sum in another order).  Block
+    m is placed on the device of every shard (d, m).  Each member then takes
+    and returns a sequence with one entry per data shard (queries, states,
+    keys, slot lists, results), on the device of shard (d, 0); ``refill``,
+    the single-slot form, is None (``refill_many`` serves).  Each factor
+    update scores the local rows on each model shard and issues ONE model
+    reduction carrying (zero-padded local scores, partial projection)
+    where ``noise_std == 0`` and the activation is elementwise, else two
+    (score noise and softmax need the gathered scores first).  The padded
+    score gather is exact (disjoint supports); the projection's sum is the
+    one place the fp sum is reassociated: integer-exact for bipolar
+    codebooks, last-ulp for unitary ones.  Convergence gathers the F decoded
+    atom rows with one more (one-hot) reduction.  A fused-eligible config
+    runs one ``fused_resonator_step_batch_local`` launch per shard per
+    sweep, then the same F packed reductions.
     """
-    _check_supported(cfg, model_axis)
+    if cfg.max_iters >= rng.MAX_SWEEP:
+        raise ValueError(f"max_iters={cfg.max_iters} exceeds the noise "
+                         f"counter's {rng.MAX_SWEEP} sweeps")
+    if model_axis is not None:
+        return _sharded_resonator(codebooks, cfg, valid_mask, model_axis,
+                                  full_rows, init_est, fused)
     vcfg = cfg.vsa
     dev = codebooks.device
     quantized = isinstance(codebooks, QTensor)
@@ -284,8 +376,10 @@ def make_resonator(codebooks, cfg: FactorizerConfig,
     if no_mask:
         valid_mask = torch.ones((F, M), dtype=torch.bool, device=dev)
     valid_mask = valid_mask.to(device=dev, dtype=torch.bool)
-    neg = torch.tensor(-1e9, dtype=torch.float32, device=dev)
-    init_est = superposition_init(codebooks, cfg, valid_mask)
+    neg = torch.tensor(_NEG, dtype=torch.float32, device=dev)
+    if init_est is None:
+        init_est = superposition_init(codebooks, cfg, valid_mask)
+    init_est = init_est.to(dev)
     use_fused = fused_sweep_eligible(cfg) and not quantized
     factor_ids = torch.arange(F, device=dev)
 
@@ -317,18 +411,8 @@ def make_resonator(codebooks, cfg: FactorizerConfig,
             new_est = new_est + sigma * z_proj
         return alpha, _norm(new_est, cfg)
 
-    def noise(s: _State, tag: int, n: int, std: float):
-        """Per factor, standard normals [N, n] of stream ``tag`` at each
-        row's own sweep index; F Nones where ``std`` is 0."""
-        if not std:
-            return [None] * F
-        return rng.normal(s.keys, s.iters, tag, F, n).unbind(1)
-
-    def reconstruct(idx: torch.Tensor) -> torch.Tensor:
-        return vsa.bind_all(dense_cb[factor_ids, idx], vcfg, axis=-2)
-
     def active(s: _State) -> torch.Tensor:
-        return torch.logical_and(~s.done, s.iters < cfg.max_iters)
+        return _active(cfg, s)
 
     def sweep(qs, s: _State) -> _State:
         est = s.est
@@ -343,8 +427,8 @@ def make_resonator(codebooks, cfg: FactorizerConfig,
                     qs, est, dense_cb, valid_mask, activation=cfg.activation,
                     fused=fused)
         else:
-            z_sim = noise(s, rng.SCORES, M, cfg.noise_std)
-            z_proj = noise(s, rng.PROJECTION, D, cfg.proj_noise_std)
+            z_sim = _noise(s, rng.SCORES, F, M, cfg.noise_std)
+            z_proj = _noise(s, rng.PROJECTION, F, D, cfg.proj_noise_std)
             if cfg.synchronous:  # Jacobi: all factors from the same snapshot
                 outs = [factor_update(qs, i, est, z_sim[i], z_proj[i])
                         for i in range(F)]
@@ -358,32 +442,11 @@ def make_resonator(codebooks, cfg: FactorizerConfig,
                                                        z_proj[i])
                     alphas.append(alpha_i)
                 alpha = torch.stack(alphas, dim=1)
-        # Convergence: do the hard-decoded atoms reconstruct each query?
         idx = torch.argmax(alpha, dim=-1)  # [N, F] first maximum on ties
-        sim = vsa.similarity(reconstruct(idx), qs)  # [N]
-        act = active(s)
-        # Freeze converged / budget-exhausted queries: est/sim/iters stop.
-        est = torch.where(act[:, None, None], est, s.est)
-        sim = torch.where(act, sim, s.sim)
-        iters = s.iters + act.to(torch.int32)
-        done = s.done | (sim >= cfg.conv_threshold)
-        if cfg.restart_every > 0:  # escape limit cycles by re-randomising
-            do_restart = act & ~done & (iters % cfg.restart_every == 0)
-            rows = torch.nonzero(do_restart).squeeze(1)  # one host sync
-            if rows.numel():
-                z = rng.normal(s.keys[rows], iters[rows], rng.RESTART, F, D)
-                est[rows] = _norm(z, cfg)  # est is this sweep's own tensor
-        return _State(est, iters, done, sim, s.keys, s.it + 1)
+        return _settle(cfg, qs, s, alpha, est, dense_cb[factor_ids, idx])
 
     def init(qs, keys) -> _State:
-        N = qs.shape[0]
-        keys = torch.as_tensor(keys, dtype=torch.int64, device=dev)
-        rng.check_keys(keys)
-        return _State(init_est.expand(N, F, D).clone(),
-                      torch.zeros(N, dtype=torch.int32, device=dev),
-                      torch.zeros(N, dtype=torch.bool, device=dev),
-                      torch.full((N,), -1.0, dtype=torch.float32, device=dev),
-                      keys, 0)
+        return _init_state(init_est, qs, keys)
 
     def decode(qs, s: _State) -> FactorizerResult:
         """Final decode from the (frozen) estimates."""
@@ -391,27 +454,15 @@ def make_resonator(codebooks, cfg: FactorizerConfig,
         alpha = torch.einsum("nfd,fmd->nfm", unbound, dense_cb)
         alpha = torch.where(valid_mask[None], alpha, neg)
         idx = torch.argmax(alpha, dim=-1).to(torch.int32)
+        recon = vsa.bind_all(dense_cb[factor_ids, idx.long()], vcfg, axis=-2)
         return FactorizerResult(idx, s.iters, s.done,
-                                vsa.similarity(reconstruct(idx.long()), qs),
-                                alpha)
+                                vsa.similarity(recon, qs), alpha)
 
     def refill_many(qs, s: _State, slots, new_qs, keys):
         """Slot fresh queries into rows ``slots`` (int [K], each in range)
         for engine continuous batching; returns new ``(qs, state)`` and
         leaves the inputs untouched."""
-        slots = torch.as_tensor(slots, dtype=torch.long, device=dev)
-        qs, est = qs.clone(), s.est.clone()
-        iters, done, sim = s.iters.clone(), s.done.clone(), s.sim.clone()
-        skeys = s.keys.clone()
-        keys = torch.as_tensor(keys, dtype=torch.int64, device=dev)
-        rng.check_keys(keys)
-        qs[slots] = new_qs
-        est[slots] = init_est
-        iters[slots] = 0
-        done[slots] = False
-        sim[slots] = -1.0
-        skeys[slots] = keys
-        return qs, _State(est, iters, done, sim, skeys, s.it)
+        return _refill_state(init_est, qs, s, slots, new_qs, keys)
 
     def refill(qs, s: _State, slot, q, key):
         """Single-slot :func:`refill_many`."""
@@ -419,6 +470,225 @@ def make_resonator(codebooks, cfg: FactorizerConfig,
                            torch.as_tensor(key, dtype=torch.int64)[None])
 
     return Resonator(init, sweep, active, decode, refill, refill_many)
+
+
+def _sharded_resonator(blocks, cfg: FactorizerConfig, valid_mask, axis,
+                       full_rows, init_est, fused) -> Resonator:
+    """The model-sharded mode of :func:`make_resonator` (see there)."""
+    if isinstance(blocks, (torch.Tensor, QTensor)) or any(
+            isinstance(b, QTensor) for b in blocks):
+        raise ValueError("model-sharded resonator requires dense codebooks, "
+                         "one [F, M / model, D] tensor per model shard "
+                         "(quantized rows would need their scales resharded "
+                         "too)")
+    if axis.name != "model":
+        raise ValueError(f"codebook rows shard over the model axis, not "
+                         f"{axis.name!r}")
+    if init_est is None:
+        raise ValueError("model-sharded resonator needs init_est from "
+                         "superposition_init(full_codebooks, ...)")
+    if valid_mask is None and full_rows is None:
+        raise ValueError("model-sharded resonator needs the full row count: "
+                         "pass full_rows= (or a full valid_mask)")
+    mesh = axis.mesh
+    devs = mesh.devices
+    n_data, n_model = mesh.shape["data"], axis.size
+    if len(blocks) != n_model:
+        raise ValueError(f"{len(blocks)} codebook blocks for {n_model} model "
+                         "shards")
+    F, M_loc, D = blocks[0].shape
+    if any(tuple(b.shape) != (F, M_loc, D) for b in blocks):
+        raise ValueError("every model shard's block must have the same shape")
+    M = valid_mask.shape[1] if valid_mask is not None else full_rows
+    if M != M_loc * n_model:
+        raise ValueError(f"codebook rows {M} don't tile into {n_model} local "
+                         f"shards of {M_loc}")
+    if valid_mask is None:
+        valid_mask = torch.ones((F, M), dtype=torch.bool)
+    valid_mask = valid_mask.to(torch.bool)
+    offs = [m * M_loc for m in range(n_model)]
+    homes = [row[0] for row in devs]
+    on_dev: dict = {}  # (model shard, device) -> block: one copy per device
+
+    def block(m, dev):
+        if (m, dev) not in on_dev:
+            b = blocks[m].to(dev)
+            if cfg.algebra == "bipolar":
+                b = vsa.normalize_sign(b)
+            on_dev[(m, dev)] = b.contiguous()
+        return on_dev[(m, dev)]
+
+    cb = [[block(m, devs[d][m]) for m in range(n_model)] for d in range(n_data)]
+    mask_home = [valid_mask.to(h) for h in homes]
+    mask_loc = [[valid_mask[:, o:o + M_loc].to(devs[d][m])
+                 for m, o in enumerate(offs)] for d in range(n_data)]
+    init_home = [init_est.to(h) for h in homes]
+    one_reduction = (cfg.noise_std == 0
+                     and cfg.activation in ("identity", "abs", "relu"))
+    use_fused = fused_sweep_eligible(cfg)
+    grid = [(d, m) for d in range(n_data) for m in range(n_model)]
+
+    def per_data(xs, what):
+        xs = list(xs)
+        if len(xs) != n_data:
+            raise ValueError(f"{what}: {len(xs)} entries for {n_data} data "
+                             "shards")
+        return xs
+
+    def on_shards(fn):
+        """``fn(d, m)`` on every shard, as a [data][model] grid."""
+        out = [[None] * n_model for _ in range(n_data)]
+        for d, m in grid:
+            out[d][m] = fn(d, m)
+        return out
+
+    def reduced(parts):
+        """One model reduction; each data shard's sum on its home device."""
+        return [row[0] for row in axis.reduce(parts)]
+
+    def pad(a_loc, m):  # local scores at the shard's offset of [..., M]
+        return nnf.pad(a_loc, (offs[m], M - offs[m] - M_loc))
+
+    def packed_split(packed, d, i):
+        """(masked full scores, gathered projection) of one packed sum; the
+        projection made contiguous, as the dense path's is (an FFT of a
+        strided input rounds differently on the CPU)."""
+        return (torch.where(mask_home[d][i], packed[:, :M], _NEG),
+                packed[:, M:].contiguous())
+
+    def factor_update(qs, i: int, est, z_sim, z_proj):
+        """Factor i's update on every data shard: (alpha_i [N, M],
+        new_est_i [N, D]) per data shard."""
+        unbound = [_unbind(q, e, cfg, factor=i) for q, e in zip(qs, est)]
+        a_loc = on_shards(lambda d, m: unbound[d].to(devs[d][m])
+                          @ cb[d][m][i].T)  # [N, M_loc]      (Step 2)
+        if one_reduction:  # the local weights need no other shard's scores
+            def packed(d, m):
+                mk = mask_loc[d][m][i]
+                w = _activation(torch.where(mk, a_loc[d][m], _NEG), cfg) * mk
+                return torch.cat([pad(a_loc[d][m], m), w @ cb[d][m][i]], -1)
+
+            alpha, new = zip(*(packed_split(p, d, i) for d, p in
+                               enumerate(reduced(on_shards(packed)))))
+        else:  # score noise and softmax need the gathered scores first
+            alpha, w = [], []
+            for d, a in enumerate(reduced(on_shards(
+                    lambda d, m: pad(a_loc[d][m], m)))):
+                mk = mask_home[d][i]
+                a = torch.where(mk, a, _NEG)
+                if z_sim[d] is not None:  # keys hold per row: drawn once
+                    sigma = cfg.noise_std * torch.std(
+                        torch.where(mk, a, 0.0), dim=-1, keepdim=True,
+                        correction=0)
+                    a = torch.where(mk, a + sigma * z_sim[d], a)
+                alpha.append(a)
+                w.append(_activation(a, cfg) * mk)
+            new = reduced(on_shards(
+                lambda d, m: w[d][:, offs[m]:offs[m] + M_loc].to(devs[d][m])
+                @ cb[d][m][i]))  #                                (Step 3)
+        ests = []
+        for d, n in enumerate(new):
+            if z_proj[d] is not None:
+                sigma = cfg.proj_noise_std * torch.std(n, dim=-1, keepdim=True,
+                                                       correction=0)
+                n = n + sigma * z_proj[d]
+            ests.append(_norm(n, cfg))
+        return list(alpha), ests
+
+    def hard_atoms(idx):
+        """Decoded atom rows [N, F, D] per data shard for indices [N, F]:
+        a one-hot contraction on each model shard, summed by one reduction
+        (exact: every non-owning shard contributes zeros)."""
+        def local(d, m):
+            dev = devs[d][m]
+            loc = idx[d].to(dev) - offs[m]
+            onehot = (loc[..., None] == torch.arange(M_loc, device=dev))
+            return torch.einsum("nfm,fmd->nfd", onehot.to(cb[d][m].dtype),
+                                cb[d][m]).contiguous()  # the gather's layout
+        return reduced(on_shards(local))
+
+    def active(ss):
+        return [_active(cfg, s) for s in per_data(ss, "states")]
+
+    def sweep(qs, ss):
+        qs, ss = per_data(qs, "queries"), per_data(ss, "states")
+        est = [s.est for s in ss]
+        if use_fused:  # one local kernel launch per shard, then F packs
+            from repro_torch.kernels.resonator_step import ops as rs
+
+            outs = on_shards(lambda d, m: rs.fused_resonator_step_batch_local(
+                qs[d].to(devs[d][m]), est[d].to(devs[d][m]), cb[d][m],
+                mask_loc[d][m], activation=cfg.activation, fused=fused))
+            alphas, ests = [[] for _ in ss], [[] for _ in ss]
+            for i in range(F):
+                sums = reduced(on_shards(lambda d, m: torch.cat(
+                    [pad(outs[d][m][0][:, i], m), outs[d][m][1][:, i]], -1)))
+                for d, p in enumerate(sums):
+                    a, n = packed_split(p, d, i)
+                    alphas[d].append(a)
+                    ests[d].append(_norm(n, cfg))
+            alpha = [torch.stack(a, dim=1) for a in alphas]
+            est = [torch.stack(e, dim=1) for e in ests]
+        else:
+            z_sim = [_noise(s, rng.SCORES, F, M, cfg.noise_std) for s in ss]
+            z_proj = [_noise(s, rng.PROJECTION, F, D, cfg.proj_noise_std)
+                      for s in ss]
+            if cfg.synchronous:  # Jacobi: all factors from the same snapshot
+                outs = [factor_update(qs, i, est, [z[i] for z in z_sim],
+                                      [z[i] for z in z_proj])
+                        for i in range(F)]
+                alpha = [torch.stack([o[0][d] for o in outs], dim=1)
+                         for d in range(n_data)]
+                est = [torch.stack([o[1][d] for o in outs], dim=1)
+                       for d in range(n_data)]
+            else:  # Gauss-Seidel: each factor sees the freshest estimates
+                est = [e.clone() for e in est]
+                alphas = [[] for _ in ss]
+                for i in range(F):
+                    a_i, e_i = factor_update(qs, i, est, [z[i] for z in z_sim],
+                                             [z[i] for z in z_proj])
+                    for d in range(n_data):
+                        est[d][:, i] = e_i[d]
+                        alphas[d].append(a_i[d])
+                alpha = [torch.stack(a, dim=1) for a in alphas]
+        idx = [torch.argmax(a, dim=-1) for a in alpha]  # first max on ties
+        atoms = hard_atoms(idx)
+        return [_settle(cfg, qs[d], ss[d], alpha[d], est[d], atoms[d])
+                for d in range(n_data)]
+
+    def init(qs, keys):
+        return [_init_state(i, q, k) for i, q, k in
+                zip(init_home, per_data(qs, "queries"), per_data(keys, "keys"))]
+
+    def decode(qs, ss):
+        """Final decode: each shard's local-row scores, padded and gathered
+        by one reduction; the decoded atoms by one more."""
+        qs, ss = per_data(qs, "queries"), per_data(ss, "states")
+        unbound = [_unbind(q, s.est, cfg) for q, s in zip(qs, ss)]
+        alpha = [torch.where(mask_home[d][None], a, _NEG)
+                 for d, a in enumerate(reduced(on_shards(lambda d, m: pad(
+                     torch.einsum("nfd,fmd->nfm", unbound[d].to(devs[d][m]),
+                                  cb[d][m]), m))))]
+        idx = [torch.argmax(a, dim=-1).to(torch.int32) for a in alpha]
+        atoms = hard_atoms([i.long() for i in idx])
+        return [FactorizerResult(
+            idx[d], ss[d].iters, ss[d].done,
+            vsa.similarity(vsa.bind_all(atoms[d], cfg.vsa, axis=-2), qs[d]),
+            alpha[d]) for d in range(n_data)]
+
+    def refill_many(qs, ss, slots, new_qs, keys):
+        """Per data shard: slot ``new_qs[d]`` into local rows ``slots[d]``;
+        shards with no rows pass through."""
+        qs, ss = per_data(qs, "queries"), per_data(ss, "states")
+        for d, (sl, nq, k) in enumerate(zip(per_data(slots, "slots"),
+                                            per_data(new_qs, "queries"),
+                                            per_data(keys, "keys"))):
+            if len(sl):
+                qs[d], ss[d] = _refill_state(init_home[d], qs[d], ss[d], sl,
+                                             nq, k)
+        return qs, ss
+
+    return Resonator(init, sweep, active, decode, None, refill_many)
 
 
 def draw_keys(generator, n: int) -> torch.Tensor:

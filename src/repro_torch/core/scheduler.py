@@ -14,8 +14,9 @@ graph, targeting the CogSys cell pool.  Reproduces the paper's mechanism:
 
 A copy of the reference package's ``core/scheduler.py``: the engine's sweep
 burst comes from :func:`schedule`, so the port must price sweeps exactly as
-the reference does.  Collective ops are priced by the sharded engine's
-interconnect model, which the port does not have yet.
+the reference does.  Collective ops are priced on NVLink
+(:func:`repro_torch.launch.mesh.collective_seconds`) where the reference
+prices them on the TPU's ICI.
 """
 from __future__ import annotations
 
@@ -96,9 +97,14 @@ def op_cycles(op: Op, hw: hw_model.ArrayConfig, n_cells: int) -> float:
     if op.kind == "simd":
         return hw_model.simd_cycles(hw, op.dims[0])["cycles"]
     if op.kind == "collective":
-        raise NotImplementedError(
-            "collective ops are priced by the sharded engine's interconnect "
-            "model (ROADMAP Queue A: sharded engine)")
+        # priced on the interconnect (launch/mesh.py's NVLink constants), not
+        # the cell pool: a collective occupies no cells, like a SIMD op, but
+        # its duration is wire time
+        from repro_torch.launch.mesh import collective_seconds
+
+        nbytes, participants = op.dims
+        return collective_seconds(nbytes, participants,
+                                  op.collective) * hw.freq_hz
     raise ValueError(op.kind)
 
 

@@ -4,6 +4,8 @@
     reasoning requests over the batch-native factorizer;
   * :func:`repro_torch.engine.registry.build` — instantiate registered
     workloads (``lvrf_rows``, ``lm_decode``);
+  * :class:`ShardedEngine` — the same engine on a ``data x model`` mesh
+    (:mod:`repro_torch.engine.sharding`), with :func:`choose_slots`;
   * :class:`Stage` / :class:`StageGraph` — declared pipelines with adSCH
     cost hints, from which the engine sizes its sweep bursts.
 
@@ -16,17 +18,25 @@ Typical use::
     done = eng.drain()
 """
 from repro_torch.engine import registry
+from repro_torch.engine import sharding
 from repro_torch.engine.engine import (Engine, Request, derive_sweeps_per_step,
                                        rolling_latency_ms, step_unit_ops,
                                        sweep_cost_ops)
 from repro_torch.engine.registry import ServeSpec
+from repro_torch.engine.sharding import (ShardedEngine, choose_slots,
+                                         measure_sweep_seconds,
+                                         modeled_sweep_seconds,
+                                         service_rate_rps, shard_graph,
+                                         shard_ops)
 from repro_torch.engine.stage import Stage, StageGraph, graph_ops, stage_ops
 from repro_torch.kernels.resonator_step.ops import FusedConfig
 
 from repro_torch.engine import pipelines as _builtin  # noqa: F401  (registers built-ins)
 
 __all__ = [
-    "Engine", "FusedConfig", "Request", "ServeSpec", "Stage", "StageGraph",
-    "derive_sweeps_per_step", "graph_ops", "registry", "rolling_latency_ms",
-    "stage_ops", "step_unit_ops", "sweep_cost_ops",
+    "Engine", "FusedConfig", "Request", "ServeSpec", "ShardedEngine", "Stage",
+    "StageGraph", "choose_slots", "derive_sweeps_per_step", "graph_ops",
+    "measure_sweep_seconds", "modeled_sweep_seconds", "registry",
+    "rolling_latency_ms", "service_rate_rps", "shard_graph", "shard_ops",
+    "sharding", "stage_ops", "step_unit_ops", "sweep_cost_ops",
 ]

@@ -48,18 +48,27 @@ def step_unit_ops(spec: ServeSpec, slots: int, *, data_shards: int = 1,
                           model_shards=model_shards)
 
 
-def derive_sweeps_per_step(spec: ServeSpec, slots: int, hw=hw_model.COGSYS) -> int:
+def derive_sweeps_per_step(spec: ServeSpec, slots: int, hw=hw_model.COGSYS, *,
+                           data_shards: int = 1, model_shards: int = 1) -> int:
     """Sweep burst between retirement scans, from adSCH runtime estimates.
 
     With a declared graph the burst is the number of symbolic sweeps that fit
     the neural stages' makespan (the interleave window the hardware scheduler
     fills, Fig. 13b).  Without one, a fixed burst of 8 amortizes the
-    host-side slotting scan.
+    host-side slotting scan.  With shards both sides are priced per device:
+    the sweep with its cross-shard reductions (collective ops), the neural
+    window scaled to its data-parallel slice.
     """
-    t_sweep = sch.schedule(step_unit_ops(spec, slots), hw).makespan
+    t_sweep = sch.schedule(
+        step_unit_ops(spec, slots, data_shards=data_shards,
+                      model_shards=model_shards), hw).makespan
     if spec.graph is not None and t_sweep > 0:
         neural = [st for st in spec.graph.stages if not st.symbolic]
         n_ops = stage_ops(neural, 0) if neural else []
+        if n_ops and data_shards > 1:
+            from repro_torch.engine.sharding.costs import shard_ops
+
+            n_ops = shard_ops(n_ops, data_shards)
         if n_ops:
             t_neural = sch.schedule(n_ops, hw).makespan
             return int(np.clip(round(t_neural / t_sweep), 1, 64))
@@ -169,29 +178,39 @@ class Engine:
         return derive_sweeps_per_step(self.spec, self.slots, self.hw)
 
     def _build_programs(self) -> None:
-        """Build the resonator closures and allocate the parked slot state."""
+        """Build the three device programs (``_sweeps``: a sweep burst,
+        ``_refill_many``, ``_decode``) and allocate the parked slot state:
+        the seam a mesh engine overrides
+        (:class:`repro_torch.engine.sharding.ShardedEngine` runs the same
+        resonator shard by shard)."""
         spec, slots = self.spec, self.slots
         rs = fz.make_resonator(spec.codebooks, spec.cfg, spec.valid_mask,
                                fused=self.fused)
-        self._rs = rs
         self.qs = torch.zeros((slots, spec.dim), dtype=torch.float32,
                               device=self.device)
         st = rs.init(self.qs, torch.zeros((slots, 2), dtype=torch.int64))
         self.state = st._replace(done=torch.ones_like(st.done))  # all parked
+
+        def run_sweeps(qs, s, budget: int):
+            """At most ``budget`` sweeps, stopping early once no row is
+            active; returns (state, sweeps run).  Each sweep costs one host
+            sync (the ``any`` below): a CUDA-graph burst of fixed length
+            with frozen rows would drop it to one per burst."""
+            n = 0
+            while n < budget and bool(rs.active(s).any()):
+                s = rs.sweep(qs, s)
+                n += 1
+            return s, n
+
+        self._sweeps = run_sweeps
+        self._refill_many = rs.refill_many
+        self._decode = rs.decode
         self._record_structure()
 
-    def _run_sweeps(self, budget: int) -> int:
-        """At most ``budget`` sweeps, stopping early once no row is active.
-
-        Each sweep costs one host sync (the ``any`` below) — the later PR's
-        target: a CUDA-graph burst of fixed length with frozen rows would
-        drop it to one sync per burst.
-        """
-        n = 0
-        while n < budget and bool(self._rs.active(self.state).any()):
-            self.state = self._rs.sweep(self.qs, self.state)
-            n += 1
-        return n
+    def _psums_per_sweep(self) -> int:
+        """Cross-shard reductions ONE sweep issues (0 on one device; the
+        mesh engine overrides with its collectives contract)."""
+        return 0
 
     def _record_structure(self) -> None:
         """Structural gauges refreshed on every (re)build: slot shape, burst
@@ -204,6 +223,8 @@ class Engine:
         self.obs.gauge("units_per_step", self.sweeps_per_step, engine=track)
         self.obs.gauge("kernel_launches_per_sweep",
                        self.kernel_launches_per_sweep, engine=track)
+        self.obs.gauge("psums_per_sweep", self._psums_per_sweep(),
+                       engine=track)
 
     @property
     def kernel_launches_per_sweep(self) -> int:
@@ -290,7 +311,7 @@ class Engine:
             return
         with self.obs.span("fill", track=self.obs_track, cat="engine",
                            args={"rows": len(fills)}):
-            self.qs, self.state = self._rs.refill_many(
+            self.qs, self.state = self._refill_many(
                 self.qs, self.state, [s for s, _, _ in fills],
                 torch.stack([q for _, q, _ in fills]),
                 torch.stack([k for _, _, k in fills]))
@@ -312,7 +333,7 @@ class Engine:
         if not ripe:
             return []
         res = fz.FactorizerResult(*(t.cpu().numpy() for t in
-                                    self._rs.decode(self.qs, self.state)))
+                                    self._decode(self.qs, self.state)))
         finished = []
         for s in ripe:
             req, qi = self._owner[s]
@@ -347,7 +368,8 @@ class Engine:
                 return []
             with obs.span("sweep-burst", track=self.obs_track,
                           cat="engine") as bp:
-                n = self._run_sweeps(self.sweeps_per_step)
+                self.state, n = self._sweeps(self.qs, self.state,
+                                             self.sweeps_per_step)
             self.sweeps_total += n
             self.steps_total += 1
             with obs.span("retire", track=self.obs_track, cat="engine"):

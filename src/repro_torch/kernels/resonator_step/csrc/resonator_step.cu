@@ -4,12 +4,18 @@
 // Replaces the TPU kernels in src/repro/kernels/resonator_step/kernel.py:
 //   resonator_step_batch         (dense;  MASKED = false)
 //   resonator_step_batch_masked  (masked; MASKED = true)
+//   resonator_step_batch_local   (one model shard's rows; MASKED and LOCAL)
 // For every (row n, factor f):
 //   u      = q[n] * prod_g est[n, g] * est[n, f]         (unbind, est = +-1)
 //   alpha  = u . X[f, m]            for m < M            (scores)
 //   alpha  = -1e9 where mask[f, m] <= 0                  (MASKED only)
 //   w      = alpha or |alpha|  (USE_ABS), times mask     (activation)
 //   est'   = sign(w . X[f]) with sign(0) = +1            (projection)
+// LOCAL: X is one model shard's row block [F, M_loc, D] and the mask its
+// slice.  alpha is written RAW (the -1e9 applies to the weights only) and
+// est' is the fp32 partial projection w . X[f], not its sign: the caller
+// sums every shard's (zero-padded scores, partial projection) and
+// saturates the sum (core/factorizer.py, model-sharded mode).
 //
 // Bound on the H100 (SXM, 3.35 TB/s, 67 TFLOP/s fp32): at the engine's
 // shape (N = 256 rows, F = 3, M = 10, D = 2048) one sweep must read q (2.1 MB),
@@ -23,9 +29,15 @@
 // the scores and the projection, and the scores never leave shared memory
 // except as the alpha output.
 //
+// LOCAL at the sharded serving shape (64 rows a shard, F = 3, M_loc = 5,
+// D = 2048): q (0.5 MB), est (1.6 MB), the block (0.12 MB) and the fp32
+// projection (1.6 MB): about 3.8 MB, 1.1 us at the memory rate; bound by
+// bytes as well.
+//
 // Exactness: on +-1 inputs every score and projection entry is an integer
 // below 2^24, so fp32 FMA gives the plain version's result bit for bit in
-// any summation order.  No TF32 or bf16 path: the projection's weights are
+// any summation order; so do the partial projections of LOCAL and their
+// sum over shards.  No TF32 or bf16 path: the projection's weights are
 // integers up to D, beyond what TF32 holds exactly for D > 2048.
 //
 // Geometry (chosen by the Python wrapper, kernel.py::launch_geometry):
@@ -44,14 +56,15 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kMTile = 16;  // partial scores a lane keeps in registers
 constexpr float kNeg = -1e9f;
 
-template <bool MASKED, bool USE_ABS>
+template <bool MASKED, bool USE_ABS, bool LOCAL>
 __global__ void __launch_bounds__(kThreads)
 resonator_step_kernel(const float* __restrict__ q,     // [N, D]
                       const float* __restrict__ est,   // [N, F, D]
                       const float* __restrict__ cb,    // [F, M, D]
                       const float* __restrict__ mask,  // [F, M] or null
                       float* __restrict__ alpha,       // [N, F, M]
-                      float* __restrict__ new_est,     // [N, F, D]
+                      float* __restrict__ new_est,     // [N, F, D]; LOCAL:
+                                                       // the fp32 projection
                       int N, int F, int M, int D, int rows, int dc) {
   extern __shared__ float smem[];
   // rows is a power of two: below kWarps, wpr warps share one row's D range;
@@ -117,20 +130,21 @@ resonator_step_kernel(const float* __restrict__ q,     // [N, D]
     if (n < N) {
       float a = 0.f;
       for (int j = 0; j < wpr; ++j) a += part[(r * wpr + j) * M + m];
-      float mk = 1.f;
+      float mk = 1.f, am = a;
       if (MASKED) {
         mk = mask[f * M + m];
-        if (!(mk > 0.f)) a = kNeg;
+        if (!(mk > 0.f)) am = kNeg;
       }
-      alpha[((size_t)n * F + f) * M + m] = a;
-      w = USE_ABS ? fabsf(a) : a;
+      alpha[((size_t)n * F + f) * M + m] = LOCAL ? a : am;  // LOCAL: raw
+      w = USE_ABS ? fabsf(am) : am;
       if (MASKED) w *= mk;
     }
     ws[i] = w;
   }
   __syncthreads();
 
-  // ---- projection + sign: est'[r, d] = sign(sum_m w[r, m] * X[f, m, d]) ----
+  // ---- projection: est'[r, d] = sign(sum_m w[r, m] * X[f, m, d]) ----------
+  // ---- (LOCAL: the sum itself) ---------------------------------------------
   for (int c = 0; c < nchunks; ++c) {
     const int d0 = c * dc, len = min(dc, D - d0);
     if (nchunks > 1) {  // one chunk: X[f] is still resident from the scores
@@ -147,19 +161,20 @@ resonator_step_kernel(const float* __restrict__ q,     // [N, D]
       const float* wr = ws + r * M;
       float proj = 0.f;
       for (int m = 0; m < M; ++m) proj = fmaf(wr[m], xs[m * dc + dd], proj);
-      new_est[((size_t)n * F + f) * D + d0 + dd] = proj >= 0.f ? 1.f : -1.f;
+      new_est[((size_t)n * F + f) * D + d0 + dd] =
+          LOCAL ? proj : (proj >= 0.f ? 1.f : -1.f);
     }
   }
 }
 
-template <bool MASKED, bool USE_ABS>
+template <bool MASKED, bool USE_ABS, bool LOCAL>
 int launch(const float* q, const float* est, const float* cb,
            const float* mask, float* alpha, float* new_est, int N, int F,
            int M, int D, int rows, int dc, cudaStream_t stream) {
   const int wpr = rows < kWarps ? kWarps / rows : 1;
   const size_t smem =
       sizeof(float) * ((size_t)M * dc + (size_t)(rows * wpr + rows) * M);
-  auto kernel = resonator_step_kernel<MASKED, USE_ABS>;
+  auto kernel = resonator_step_kernel<MASKED, USE_ABS, LOCAL>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -169,26 +184,43 @@ int launch(const float* q, const float* est, const float* cb,
   return (int)cudaGetLastError();
 }
 
+template <bool MASKED, bool LOCAL>
+int launch_act(const float* q, const float* est, const float* cb,
+               const float* mask, float* alpha, float* new_est, int N, int F,
+               int M, int D, int rows, int dc, int use_abs,
+               cudaStream_t stream) {
+  return use_abs ? launch<MASKED, true, LOCAL>(q, est, cb, mask, alpha,
+                                                new_est, N, F, M, D, rows,
+                                                dc, stream)
+                 : launch<MASKED, false, LOCAL>(q, est, cb, mask, alpha,
+                                                 new_est, N, F, M, D, rows,
+                                                 dc, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Launches one fused sweep on `stream`; `mask` null selects the dense
-// variant.  Returns cudaGetLastError() after the launch (0 on success).
+// variant, `local` (with a mask) the model-shard variant, whose `new_est`
+// receives the fp32 partial projection.  Returns cudaGetLastError() after
+// the launch (0 on success), cudaErrorInvalidValue for `local` without a
+// mask.
 int resonator_step_launch(const float* q, const float* est, const float* cb,
                           const float* mask, float* alpha, float* new_est,
                           int N, int F, int M, int D, int rows, int dc,
-                          int use_abs, void* stream) {
+                          int use_abs, int local, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (local) {
+    if (mask == nullptr) return (int)cudaErrorInvalidValue;
+    return launch_act<true, true>(q, est, cb, mask, alpha, new_est, N, F, M,
+                                  D, rows, dc, use_abs, s);
+  }
   if (mask != nullptr)
-    return use_abs ? launch<true, true>(q, est, cb, mask, alpha, new_est, N,
-                                        F, M, D, rows, dc, s)
-                   : launch<true, false>(q, est, cb, mask, alpha, new_est, N,
-                                         F, M, D, rows, dc, s);
-  return use_abs ? launch<false, true>(q, est, cb, mask, alpha, new_est, N, F,
-                                       M, D, rows, dc, s)
-                 : launch<false, false>(q, est, cb, mask, alpha, new_est, N,
-                                        F, M, D, rows, dc, s);
+    return launch_act<true, false>(q, est, cb, mask, alpha, new_est, N, F, M,
+                                   D, rows, dc, use_abs, s);
+  return launch_act<false, false>(q, est, cb, mask, alpha, new_est, N, F, M,
+                                  D, rows, dc, use_abs, s);
 }
 
 const char* resonator_step_error_string(int code) {

@@ -1,6 +1,8 @@
 """Wrappers of the CUDA fused resonator sweep (``csrc/resonator_step.cu``).
 
-Each wrapper checks its inputs, allocates the outputs with ``torch.empty``,
+Three variants of one kernel: dense, masked, and local (one model shard's
+codebook rows, raw scores and the fp32 partial projection out).  Each
+wrapper checks its inputs, allocates the outputs with ``torch.empty``,
 launches the kernel on the current stream and bumps its launch count in
 :mod:`.ops`.  They take CUDA tensors only: the CPU path lives in
 :mod:`.ops`, which sends CPU tensors to the plain versions in :mod:`.ref`.
@@ -65,7 +67,7 @@ def _check(name, t, shape):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(qs, est, codebooks, mask, activation, tn):
+def _launch(qs, est, codebooks, mask, activation, tn, local=False):
     if activation not in ("identity", "abs"):
         raise ValueError(f"fused sweep takes activation identity|abs, got "
                          f"{activation!r}")
@@ -93,7 +95,7 @@ def _launch(qs, est, codebooks, mask, activation, tn):
             qs.data_ptr(), est.data_ptr(), codebooks.data_ptr(),
             None if mask is None else mask.data_ptr(),
             alpha.data_ptr(), new_est.data_ptr(), N, F, M, D, rows, dc,
-            int(activation == "abs"), stream)
+            int(activation == "abs"), int(local), stream)
     if rc != 0:
         raise RuntimeError(f"resonator_step launch failed: CUDA error {rc} "
                            f"({lib.resonator_step_error_string(rc).decode()})")
@@ -105,7 +107,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.resonator_step_launch
     if fn.argtypes is None:  # first use in this process
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
         lib.resonator_step_error_string.argtypes = [ctypes.c_int]
         lib.resonator_step_error_string.restype = ctypes.c_char_p
@@ -136,6 +138,25 @@ def resonator_step_batch_masked(qs: torch.Tensor, est: torch.Tensor,
         if isinstance(valid_mask, torch.Tensor) else valid_mask
     out = _launch(qs, est, codebooks, mask, activation, tn)
     ops.masked_launches += 1
+    return out
+
+
+def resonator_step_batch_local(qs: torch.Tensor, est: torch.Tensor,
+                               cb_local: torch.Tensor,
+                               valid_mask_local: torch.Tensor | None = None,
+                               *, activation: str = "identity",
+                               tn: int = 128):
+    """Fused sweep over ONE model shard's codebook rows.  cb_local:
+    [F, M_loc, D]; valid_mask_local: [F, M_loc] bool or {0,1} (None: all
+    valid) -> (alpha_loc [N, F, M_loc] raw, part_proj [N, F, D] fp32, not
+    saturated)."""
+    from repro_torch.kernels.resonator_step import ops
+
+    if valid_mask_local is None:
+        valid_mask_local = torch.ones(cb_local.shape[:2], device=qs.device)
+    mask = valid_mask_local.to(torch.float32).contiguous()
+    out = _launch(qs, est, cb_local, mask, activation, tn, local=True)
+    ops.local_launches += 1
     return out
 
 

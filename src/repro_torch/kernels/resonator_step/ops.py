@@ -4,9 +4,10 @@ A tensor on the CPU goes to the plain version (:mod:`.ref`); a CUDA tensor
 goes to the hand-written kernel (:mod:`.kernel`), which launches or raises.
 There is no third path and no fallback.
 
-``launches`` and ``masked_launches`` count the kernel launches of the dense
-and the masked wrapper (plain integers, bumped by :mod:`.kernel` once per
-launch), so a run can show that its sweeps went through the kernel.
+``launches``, ``masked_launches`` and ``local_launches`` count the kernel
+launches of the dense, the masked and the model-shard wrapper (plain
+integers, bumped by :mod:`.kernel` once per launch), so a run can show that
+its sweeps went through the kernel.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from repro_torch.kernels.resonator_step import ref as _ref
 
 launches = 0  # dense kernel launches in this process
 masked_launches = 0  # masked kernel launches in this process
+local_launches = 0  # model-shard kernel launches in this process
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,6 +73,22 @@ def fused_resonator_step_batch_masked(qs, est, codebooks, valid_mask,
                                           activation=activation, tn=f.tn)
 
 
+def fused_resonator_step_batch_local(qs, est, cb_local, valid_mask_local=None,
+                                     activation: str = "identity",
+                                     fused: FusedConfig | None = None):
+    """Fused sweep over one model shard's codebook rows ``[F, M_loc, D]``
+    and that shard's mask slice: returns (raw local scores [N, F, M_loc],
+    fp32 partial projection [N, F, D]) for the caller's one packed
+    reduction per factor (see ``core/factorizer.py``, model-sharded
+    mode)."""
+    f = _cfg(fused)
+    if qs.device.type == "cpu":
+        return _ref.resonator_step_batch_local_ref(qs, est, cb_local,
+                                                   valid_mask_local, activation)
+    return _k.resonator_step_batch_local(qs, est, cb_local, valid_mask_local,
+                                         activation=activation, tn=f.tn)
+
+
 def fused_resonator_step(q, est, codebooks, activation: str = "identity"):
     """One fused Jacobi resonator sweep for a single query (bipolar algebra)."""
     if q.device.type == "cpu":
@@ -81,3 +99,4 @@ def fused_resonator_step(q, est, codebooks, activation: str = "identity"):
 resonator_step_ref = _ref.resonator_step_ref
 resonator_step_batch_ref = _ref.resonator_step_batch_ref
 resonator_step_batch_masked_ref = _ref.resonator_step_batch_masked_ref
+resonator_step_batch_local_ref = _ref.resonator_step_batch_local_ref

@@ -79,6 +79,104 @@ def test_factorize_batch_on_the_card_bit_equals_the_cpu(cuda):
         assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,f,m,d,shards", [
+    (1, 3, 12, 256, 2), (7, 3, 12, 256, 2), (130, 3, 12, 256, 2),
+    (64, 3, 10, 2048, 2),  # the sharded serving shape: M_loc = 5
+    (64, 3, 2, 2048, 2),  # M_loc = 1
+    (5, 4, 99, 37, 3),  # D not a multiple of the warp
+])
+@pytest.mark.parametrize("act", ["identity", "abs"])
+def test_local_kernel_bit_equals_plain_version_and_gathers_to_masked(
+        cuda, n, f, m, d, shards, act):
+    """The LOCAL mode against its plain version on every shard's row block
+    and mask slice, bitwise; the shards' padded scores and partial
+    projections, summed, masked and saturated, equal the masked kernel."""
+    gen = torch.Generator().manual_seed(n * 5 + m)
+    cbs = _bipolar(gen, (f, m, d), cuda)
+    qs = _bipolar(gen, (n, d), cuda)
+    est = _bipolar(gen, (n, f, d), cuda)
+    sizes = [m, m // 2] + [m // 3 + 1] * (f - 2)
+    mask = torch.stack([torch.arange(m) < s for s in sizes]).to(cuda)
+    m_loc = m // shards
+    acc_a = torch.zeros((n, f, m), device=cuda)
+    acc_p = torch.zeros((n, f, d), device=cuda)
+    for s in range(shards):
+        blk = cbs[:, s * m_loc:(s + 1) * m_loc].contiguous()
+        mk = mask[:, s * m_loc:(s + 1) * m_loc]
+        before = ops.local_launches
+        got = ops.fused_resonator_step_batch_local(qs, est, blk, mk, act)
+        want = ref.resonator_step_batch_local_ref(qs, est, blk, mk, act)
+        assert ops.local_launches == before + 1
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        acc_a[..., s * m_loc:(s + 1) * m_loc] += got[0]
+        acc_p += got[1]
+    a_full = torch.where(mask[None], acc_a, -1e9)
+    e_full = torch.where(acc_p >= 0, 1.0, -1.0)
+    a_k, e_k = ops.fused_resonator_step_batch_masked(qs, est, cbs, mask, act)
+    assert torch.equal(a_full, a_k) and torch.equal(e_full, e_k)
+
+
+@pytest.mark.cuda
+def test_local_kernel_takes_no_mask_and_refuses_bad_inputs(cuda):
+    from repro_torch.kernels.resonator_step import kernel as rsk
+
+    gen = torch.Generator().manual_seed(9)
+    cbs = _bipolar(gen, (3, 5, 256), cuda)
+    qs, est = _bipolar(gen, (4, 256), cuda), _bipolar(gen, (4, 3, 256), cuda)
+    got = rsk.resonator_step_batch_local(qs, est, cbs)
+    want = ref.resonator_step_batch_local_ref(qs, est, cbs)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="contiguous"):
+        rsk.resonator_step_batch_local(qs, est, _bipolar(gen, (3, 10, 256),
+                                                         cuda)[:, :5])
+    with pytest.raises(ValueError, match="CUDA"):
+        rsk.resonator_step_batch_local(qs.cpu(), est, cbs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("placement", ["rows", "replicated"])
+def test_sharded_engine_on_the_card_bit_equals_engine(cuda, fused, placement):
+    """A 2 x 2 logical mesh on one card serves LVRF rows (D = 2048) exactly
+    as the single-device Engine on the card does; a fused rows spec runs
+    the local kernel once per shard per sweep."""
+    from repro_torch import engine
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lvrf
+
+    cfg = lvrf.LVRFConfig()
+    atoms = lvrf.init_atoms(torch.Generator().manual_seed(0), cfg,
+                            device=cuda)
+    spec = engine.registry.build("lvrf_rows", 0, fused_step=fused,
+                                 atoms=atoms, device=cuda)
+    vals = np.random.default_rng(2).integers(0, cfg.n_values, (24, 3))
+    qs = lvrf.encode_row(atoms, vals, cfg)
+    keys = fz.draw_keys(3, len(vals))
+
+    def serve(eng):
+        ids = [eng.submit(qs[i], keys=keys[i][None]) for i in range(len(qs))]
+        done = {r.id: r for r in eng.drain()}
+        return [done[i] for i in ids], eng
+
+    base, _ = serve(engine.Engine(spec, slots=8, device=cuda))
+    mesh = make_host_mesh(2, 2, device=cuda)
+    before = ops.local_launches
+    got, eng = serve(engine.ShardedEngine(
+        spec, mesh=mesh, codebook_placement=placement, slots=8))
+    for a, b in zip(base, got):
+        for name in a.factorization._fields:
+            np.testing.assert_array_equal(getattr(b.factorization, name),
+                                          getattr(a.factorization, name))
+        assert (b.result["values"] == vals[base.index(a)]).all()
+    local = ops.local_launches - before
+    assert local == (4 * eng.sweeps_total if fused and placement == "rows"
+                     else 0)
+
+
 SIM_SHAPES = [(1, 10, 64), (7, 100, 512), (128, 257, 1024), (3, 1000, 100),
               (256, 10, 1024), (1, 1, 1), (5, 33, 2050)]
 

@@ -438,10 +438,27 @@ def test_factorize_refuses_keys_outside_the_counter_range():
 
 
 def test_model_axis_is_refused():
+    """The model-sharded mode refuses what the reference's refuses: the
+    full codebooks in place of per-shard blocks, quantized rows, a missing
+    init_est or row count, and blocks that do not tile the rows."""
+    from repro_torch.launch.mesh import make_host_mesh
+
     _, tcfg = _cfgs()
     cbs = tfz.make_codebooks(torch.Generator(), tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="sharded engine"):
-        tfz.make_resonator(cbs, tcfg, model_axis="model")
+    axis = make_host_mesh(2, 2, device="cpu").axis("model")
+    M = cbs.shape[1]
+    blocks = [cbs[:, :M // 2], cbs[:, M // 2:]]
+    init = tfz.superposition_init(cbs, tcfg)
+    for bad, kw, match in (
+            (cbs, dict(init_est=init, full_rows=M), "dense"),
+            ([tfz.quantize_codebooks(b, "int8") for b in blocks],
+             dict(init_est=init, full_rows=M), "dense"),
+            (blocks, dict(full_rows=M), "init_est"),
+            (blocks, dict(init_est=init), "full row count"),
+            (blocks, dict(init_est=init, full_rows=M + 1), "tile"),
+            (blocks[:1], dict(init_est=init, full_rows=M), "model shards")):
+        with pytest.raises(ValueError, match=match):
+            tfz.make_resonator(bad, tcfg, model_axis=axis, **kw)
 
 
 def test_well_conditioned_rows_survive_another_summation_order():

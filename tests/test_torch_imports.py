@@ -36,8 +36,9 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 54  # every package and module of the port, the LM
-    # serving slice's (nn, configs, lm, launch, runtime, flash_decode) included
+    assert int(count) >= 59  # every package and module of the port, the LM
+    # serving slice's (nn, configs, lm, launch, runtime, flash_decode) and the
+    # sharded engine's (launch.mesh, engine.sharding) included
     assert bad == "[]"
 
 
@@ -53,12 +54,15 @@ def _imported(path: Path) -> set:
 
 def test_no_source_of_the_port_imports_jax_or_the_reference():
     files = sorted(PORT.rglob("*.py")) + [CHIP_SMOKE]
-    assert len(files) >= 56
+    assert len(files) >= 61
     names = {p.relative_to(PORT).as_posix() for p in files[:-1]}
     assert {"nn/layers.py", "nn/transformer.py", "lm/model.py",
             "lm/paging.py", "lm/sampling.py", "launch/serve.py",
             "runtime/lm.py", "configs/registry.py",
-            "kernels/flash_decode/ops.py"} <= names
+            "kernels/flash_decode/ops.py", "launch/mesh.py",
+            "engine/sharding/__init__.py", "engine/sharding/engine.py",
+            "engine/sharding/costs.py",
+            "engine/sharding/autotune.py"} <= names
     for path in files:
         for name in _imported(path):
             top = name.split(".")[0]
