@@ -57,7 +57,21 @@ port from the checkout's sources (into ``build/kernels/``), then:
      against ``Engine``, printing the rows that differ;
  18. times the LOCAL kernel, its plain version and its bound at the sharded
      serving shape (CUDA-graph replay);
- 19. prints one JSON line describing every kernel, the card line, and as
+ 19. holds both circular convolution kernels against their plain versions
+     at the reference test's shapes (fp32 and bf16, the reference's
+     tolerances) and at both of MIMONet's serving shapes (4096 and 8192
+     rows of L = 256, S = 2 and S = 4);
+ 20. serves MIMONet at full width (D = 2048, B = 8, hidden 2048 x 2, random
+     fp32 weights) through ``vsa.bind(impl="pallas")``: 4096 RAVEN panels at
+     S = 2 (8 batches of 256 items), then at S = 4 (4 batches); exactly 2
+     rows launches a batch, logits, loss and accuracies against the same
+     model with impl="fft", stream separation, and a bind -> mean -> unbind
+     round trip through the kernel;
+ 21. the HRR corner: one item at S = 1, B = 1 (L = 2048) through ``apply``,
+     exactly 2 single-row launches, logits against the fft run;
+ 22. times both circconv kernels, their plain versions, their bounds (bytes
+     against an FFT's operations) and the FFT bind (CUDA-graph replay);
+ 23. prints one JSON line describing every kernel, the card line, and as
      the last line ``{"ok": true, "device": {...}}``.
 
 A failed phase raises, and the script exits nonzero.  Without a CUDA device,
@@ -66,6 +80,7 @@ or without the repository beside it, it exits nonzero before any result.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -833,6 +848,30 @@ def serve_lm(torch, dev, cfg, model, prompts, fd, tag):
             "tokens": {i: done[i].tokens for i in ids}}
 
 
+def device_profile(torch, fn, reps: int = 3) -> str:
+    """A profiler trace of ``reps`` eager calls of ``fn``: device operations
+    and device busy time per call, and the costliest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kern:
+        return "the profiler recorded no device events"
+    busy = {e.key: getattr(e, "self_device_time_total", 0.0) / (reps * 1e3)
+            for e in kern}
+    calls = sum(e.count for e in kern) / reps
+    top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
+    total = sum(busy.values())
+    return (f"{calls:.0f} device operations, {total:.3f} ms device busy; "
+            "costliest: " + "; ".join(f"{k[:60]} {v:.3f} ms ({v / total:.0%})"
+                                      for k, v in top))
+
+
 def lm_breakdown(torch, dev, cfg, model, lens, fd, card):
     """Where a decode step and a prefill chunk spend their time, at the
     run's shape (LM_SLOTS active slots at `lens`; one LM_CHUNK-token chunk
@@ -842,7 +881,6 @@ def lm_breakdown(torch, dev, cfg, model, lens, fd, card):
     step (kernels launched, device busy time, the costliest kernels).
     Returns the decode step's device ms."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.lm import model as lm_model
     from repro_torch.lm.paging import BlockTablePool
@@ -872,32 +910,15 @@ def lm_breakdown(torch, dev, cfg, model, lens, fd, card):
             fn()
             torch.cuda.synchronize()
         out[name] = (dev_ms, (time.perf_counter() - t0) / 5 * 1e3)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            step()
-        torch.cuda.synchronize()
+    prof = device_profile(torch, step)
     fd.launches = launches  # these launches are not the main path's
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = {e.key: getattr(e, "self_device_time_total", 0.0) / 3e3
-            for e in kern}
-    calls = sum(e.count for e in kern) / 3
-    top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
-    total = sum(busy.values())
     print(f"phase 12: breakdown on {card}: decode step ({LM_SLOTS} slots, "
           f"mean length {np.mean(lens):.0f}) device {out['decode step'][0]:.3f} "
           f"ms (CUDA graph), host wall eager {out['decode step'][1]:.3f} ms; "
           f"prefill chunk ({LM_CHUNK} tokens at position 256) device "
           f"{out['prefill chunk'][0]:.3f} ms, host wall eager "
           f"{out['prefill chunk'][1]:.3f} ms", flush=True)
-    if not kern:
-        print("phase 12: the profiler recorded no device events", flush=True)
-    else:
-        print(f"phase 12: profiler, eager decode step: {calls:.0f} device "
-              f"operations, {total:.3f} ms device busy; costliest: "
-              + "; ".join(f"{k[:60]} {v:.3f} ms ({v / total:.0%})"
-                          for k, v in top), flush=True)
+    print(f"phase 12: profiler, eager decode step: {prof}", flush=True)
     del pool
 
 
@@ -1439,6 +1460,327 @@ def phase_local_timing(torch, dev, rs, ref, card):
             "bound_by": b_by}
 
 
+# MIMONet (phases 19-22): the reference test's circconv shapes
+# (tests/test_kernels.py), the serving shape of a MIMONet batch (256 items x
+# S = 2 x B = 8 rows of L = 256), the HRR corner's lengths, and the traffic:
+# 4096 panels served at S = 2 and again at S = 4, 256 items a batch (the
+# stream counts examples/mimonet_superposition.py sweeps).
+MIMO_DIM, MIMO_BLOCKS = 2048, 8  # MIMONetConfig's VSAConfig: L = 256
+MIMO_PANELS, MIMO_ITEMS, MIMO_STREAMS = 4096, 256, (2, 4)
+CC_ROWS_CASES = ((1, 64), (4, 128), (32, 256), (7, 100), (130, 64), (16, 1024))
+CC_SERVE = tuple((MIMO_ITEMS * S * MIMO_BLOCKS, MIMO_DIM // MIMO_BLOCKS)
+                 for S in MIMO_STREAMS)  # one launch's rows: (4096 | 8192, 256)
+CC_SINGLE_L = (512, 1024, 777, 2048)
+CC_TIMED_L = 2048
+MIMO_ATOL, MIMO_RTOL = 1e-5, 1e-4  # logits of order 0.05: fp32 binds in
+# another order (kernel against cuFFT), through the same cuBLAS GEMMs
+
+
+def phase_circconv(torch, dev, cc) -> dict:
+    """Both circconv kernels against their plain versions on the card, at
+    the reference test's shapes and tolerances, fp32 and bf16, plus every
+    shape the MIMONet path launches (CC_SERVE).  Returns each kernel's max
+    |kernel - plain| in fp32."""
+    from repro_torch.kernels.circconv import kernel as k
+    from repro_torch.kernels.circconv import ref
+
+    gen = torch.Generator().manual_seed(51)
+    launches = (cc.rows_launches, cc.single_launches)
+    err = {}
+
+    def check(name, got, want, atol, rtol, what):
+        torch.cuda.synchronize()
+        diff = (got.float() - want).abs()
+        if not bool((diff <= atol + rtol * want.abs()).all()):
+            raise AssertionError(f"{name} != plain version at {what}: max "
+                                 f"|diff| {diff.max().item()}")
+        return diff.max().item()
+
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 0.15)):
+        worst = 0.0
+        for n, L in CC_ROWS_CASES + CC_SERVE:
+            x = torch.randn((n, L), generator=gen).to(dev, dtype)
+            y = torch.randn((n, L), generator=gen).to(dev, dtype)
+            worst = max(worst, check(
+                "circconv_rows", k.circconv_rows(x, y),
+                ref.circconv_rows_ref(x, y), tol * L ** 0.5, tol,
+                f"N={n} L={L} {dtype}"))
+        if dtype == torch.float32:  # the path's dtype
+            err["rows"] = worst
+        print(f"phase 19: circconv_rows within the reference's tolerance "
+              f"(atol {tol} sqrt(L), rtol {tol}) of its plain version at "
+              f"{dtype}, (N, L) in {CC_ROWS_CASES + CC_SERVE}: max |diff| "
+              f"{worst:.3g}", flush=True)
+    worst = 0.0
+    for L in CC_SINGLE_L:
+        x = torch.randn((L,), generator=gen).to(dev)
+        y = torch.randn((L,), generator=gen).to(dev)
+        worst = max(worst, check("circconv_single", k.circconv_single(x, y),
+                                 ref.circconv_single_ref(x, y), 1e-3, 1e-4,
+                                 f"L={L}"))
+    err["single"] = worst
+    print(f"phase 19: circconv_single within atol 1e-3, rtol 1e-4 of its "
+          f"plain version at fp32, L in {CC_SINGLE_L}: max |diff| "
+          f"{worst:.3g}", flush=True)
+    cc.rows_launches, cc.single_launches = launches  # not the main path's
+    return err
+
+
+def _logits_agree(torch, got, want, what):
+    """Every logit finite and within MIMO_ATOL + MIMO_RTOL |want|."""
+    for a, (g, w) in enumerate(zip(got, want)):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{what}: attribute {a} has a non-finite "
+                                 "logit")
+        diff = (g - w).abs()
+        if not bool((diff <= MIMO_ATOL + MIMO_RTOL * w.abs()).all()):
+            raise AssertionError(f"{what}: attribute {a} logits differ from "
+                                 f"the fft run by up to {diff.max().item()}")
+
+
+def _losses_agree(torch, mm, model, batch, cfg, fft):
+    """loss_fn through the kernel against the fft run: the loss within
+    1e-5 relative; a prediction may differ only at a near tie (the fft
+    run's top two logits within twice the logits' tolerance), and each
+    accuracy only by such predictions.  Returns the near ties taken."""
+    loss, accs = mm.loss_fn(model, batch, cfg)
+    loss_f, accs_f = mm.loss_fn(model, batch, fft)
+    if abs(loss.item() - loss_f.item()) > 1e-5 * abs(loss_f.item()):
+        raise AssertionError(f"loss {loss.item()} against the fft run's "
+                             f"{loss_f.item()}")
+    logits = mm.apply(model, batch["images"], cfg)
+    logits_f = mm.apply(model, batch["images"], fft)
+    ties = 0
+    for a, name in enumerate(mm.ATTRS):
+        flip = logits[a].argmax(-1) != logits_f[a].argmax(-1)
+        top2 = logits_f[a].topk(2, dim=-1).values
+        gap = top2[..., 0] - top2[..., 1]
+        slack = 2 * (MIMO_ATOL + MIMO_RTOL * top2[..., 0].abs())
+        if bool((flip & (gap > slack)).any()):
+            raise AssertionError(f"{name}: a prediction differs from the fft "
+                                 "run away from a near tie")
+        n = int(flip.sum())
+        ties += n
+        if abs(accs[name].item() - accs_f[name].item()) > (
+                n / flip.numel() + 1e-6):
+            raise AssertionError(f"{name} accuracy {accs[name].item()} "
+                                 f"against the fft run's {accs_f[name].item()}")
+    return ties
+
+
+def phase_mimonet(torch, dev, cc, card) -> dict:
+    """MIMONet served at full width (D = 2048, B = 8, hidden 2048 x 2) through
+    impl="pallas": 4096 panels at S = 2 (8 batches) and again at S = 4 (4
+    batches), 256 items a batch, random weights from a seed.  Checks the
+    launch count (one bind and one unbind a batch, no single-row launch),
+    the logits, loss and accuracies against the same model with impl="fft",
+    stream separation, and a bind -> mean -> unbind round trip of Gaussian
+    embeddings through the kernel.  Returns the rows launches of the two
+    served runs and the serving numbers."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core import vsa
+    from repro_torch.data import raven
+    from repro_torch.models import mimonet as mm
+
+    data = raven.attribute_classification_batch(np.random.default_rng(61),
+                                                MIMO_PANELS)
+    imgs = torch.from_numpy(data["images"]).to(dev)
+    labels = {a: torch.from_numpy(data[a]).to(dev) for a in mm.ATTRS}
+    out = {"launches": 0}
+    for seed, S in enumerate(MIMO_STREAMS):
+        cfg = mm.MIMONetConfig(
+            vsa=vsa.VSAConfig(MIMO_DIM, MIMO_BLOCKS, impl="pallas"),
+            num_streams=S)
+        fft = dataclasses.replace(
+            cfg, vsa=vsa.VSAConfig(MIMO_DIM, MIMO_BLOCKS, impl="fft"))
+        model = mm.init(cfg, seed, device=dev)
+        per = MIMO_ITEMS * S
+        batches = [{"images": imgs[i:i + per].reshape(MIMO_ITEMS, S, 32, 32),
+                    **{a: labels[a][i:i + per].reshape(MIMO_ITEMS, S)
+                       for a in mm.ATTRS}}
+                   for i in range(0, MIMO_PANELS, per)]
+        for run in (cfg, fft):  # warm-up: cuBLAS and cuFFT plans
+            mm.apply(model, batches[0]["images"], run)
+        torch.cuda.synchronize()
+
+        def serve(run):
+            walls, logits = [], []
+            t_all = time.perf_counter()
+            for b in batches:
+                t0 = time.perf_counter()
+                logits.append(mm.apply(model, b["images"], run))
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            return logits, walls, time.perf_counter() - t_all
+
+        cc.rows_launches = cc.single_launches = 0  # the main path's run
+        logits, walls, wall = serve(cfg)
+        launches = (cc.rows_launches, cc.single_launches)  # ... ends here
+        if launches != (2 * len(batches), 0):
+            raise AssertionError(f"S={S}: (rows, single) launches {launches}"
+                                 f", expected ({2 * len(batches)}, 0): one "
+                                 "bind and one unbind a batch")
+        out["launches"] += launches[0]
+        logits_f, walls_f, wall_f = serve(fft)
+        for i, (g, w) in enumerate(zip(logits, logits_f)):
+            _logits_agree(torch, g, w, f"S={S} batch {i}")
+        ties = sum(_losses_agree(torch, mm, model, b, cfg, fft)
+                   for b in batches)
+        first = logits[0][0]
+        if torch.allclose(first[:, 0], first[:, 1]):
+            raise AssertionError(f"S={S}: streams 0 and 1 give the same "
+                                 "logits")
+        worst = max((g - w).abs().max().item() for gs, ws in
+                    zip(logits, logits_f) for g, w in zip(gs, ws))
+        scale = max(g.abs().max().item() for gs in logits for g in gs)
+        launches_before = cc.rows_launches
+        dev_ms = graph_ms(lambda: mm.apply(model, batches[0]["images"], cfg),
+                          iters=5, replays=4)
+        dev_f = graph_ms(lambda: mm.apply(model, batches[0]["images"], fft),
+                         iters=5, replays=4)
+        prof = device_profile(
+            torch, lambda: mm.apply(model, batches[0]["images"], cfg))
+        cc.rows_launches = launches_before
+        out[S] = {"wall_ms": wall * 1e3, "panels_per_s": MIMO_PANELS / wall,
+                  "batch_ms": float(np.mean(walls)) * 1e3,
+                  "device_ms": dev_ms}
+        print(f"phase 20: MIMONet S={S} at full width on {card}: "
+              f"{sum(p.numel() for p in model.parameters()):,} fp32 "
+              f"parameters, {MIMO_PANELS} panels in {len(batches)} batches "
+              f"of {MIMO_ITEMS} items; rows launches {launches[0]} (2 a "
+              f"batch), single {launches[1]}; wall {wall * 1e3:.2f} ms, "
+              f"{MIMO_PANELS / wall:.1f} panels/s, per batch (host "
+              f"included) mean {np.mean(walls) * 1e3:.3f} ms, min "
+              f"{min(walls) * 1e3:.3f} ms; device time of a batch (CUDA "
+              f"graph) {dev_ms:.4f} ms; impl='fft' on the same model: wall "
+              f"{wall_f * 1e3:.2f} ms, {MIMO_PANELS / wall_f:.1f} panels/s, "
+              f"per batch {np.mean(walls_f) * 1e3:.3f} ms, device "
+              f"{dev_f:.4f} ms", flush=True)
+        print(f"phase 20: S={S}: profiler, one eager batch: {prof}",
+              flush=True)
+        print(f"phase 20: S={S}: every logit finite and within atol "
+              f"{MIMO_ATOL}, rtol {MIMO_RTOL} of the fft run (max |diff| "
+              f"{worst:.3g}, max |logit| {scale:.3g}); loss_fn's loss within "
+              f"1e-5 relative and its accuracies equal up to {ties} near "
+              f"ties; streams 0 and 1 give different logits", flush=True)
+
+    # The reference's test_superpose_unbind_roundtrip at D = 2048, through
+    # the kernel: each recovered stream correlates best with its own.
+    vcfg = vsa.VSAConfig(2048, 8, impl="pallas")
+    gen = torch.Generator().manual_seed(62)
+    keys = vsa.random_unitary(gen, (3,), vcfg, device=dev)
+    embs = torch.randn((2, 3, 8, 2048), generator=gen).to(dev)
+    before = cc.rows_launches
+    bundled = torch.mean(vsa.bind(embs, keys[None, :, None, :], vcfg), dim=1)
+    rec = vsa.unbind(bundled[:, None], keys[None, :, None, :], vcfg)
+    if cc.rows_launches != before + 2:
+        raise AssertionError("the round trip did not go through the kernel")
+    cc.rows_launches = before
+    corr = [[torch.mean(rec[:, s] * embs[:, o]).item() for o in range(3)]
+            for s in range(3)]
+    other = [max(abs(corr[s][o]) for o in range(3) if o != s)
+             for s in range(3)]
+    if not all(corr[s][s] > 2 * other[s] for s in range(3)):
+        raise AssertionError(f"round trip: correlations {corr}")
+    print("phase 20: bind -> mean -> unbind round trip of 3 Gaussian streams "
+          "at D=2048 through the kernel: own correlations "
+          + ", ".join(f"{corr[s][s]:.4f}" for s in range(3))
+          + f"; largest other {max(other):.4f}", flush=True)
+    return out
+
+
+def phase_hrr(torch, dev, cc) -> int:
+    """The HRR corner: one item, S = 1, B = 1 (L = 2048) through apply; each
+    bind and unbind is one single-row launch.  Returns the launches."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core import vsa
+    from repro_torch.data import raven
+    from repro_torch.models import mimonet as mm
+
+    cfg = mm.MIMONetConfig(vsa=vsa.VSAConfig(2048, 1, impl="pallas"),
+                           num_streams=1)
+    fft = dataclasses.replace(cfg, vsa=vsa.VSAConfig(2048, 1, impl="fft"))
+    model = mm.init(cfg, 7, device=dev)
+    data = raven.attribute_classification_batch(np.random.default_rng(63), 1)
+    img = torch.from_numpy(data["images"]).reshape(1, 1, 32, 32).to(dev)
+    cc.rows_launches = cc.single_launches = 0  # the main path's run
+    logits = mm.apply(model, img, cfg)
+    torch.cuda.synchronize()
+    launches = (cc.rows_launches, cc.single_launches)  # ... ends here
+    if launches != (0, 2):
+        raise AssertionError(f"HRR corner: (rows, single) launches "
+                             f"{launches}, expected (0, 2)")
+    _logits_agree(torch, logits, mm.apply(model, img, fft), "HRR corner")
+    print(f"phase 21: HRR corner (one item, S=1, D=L=2048): 2 single-row "
+          f"launches, no rows launch; logits within atol {MIMO_ATOL}, rtol "
+          f"{MIMO_RTOL} of the fft run", flush=True)
+    return launches[1]
+
+
+def circ_bound(n: int, L: int, itemsize: int = 4) -> tuple:
+    """Least time (ms) of one circular convolution of n rows of L: x and y
+    read once, the output written once, over the memory rate; the FLOP of
+    its cheapest method at the fp32 rate.  That is the FFT route, not the
+    direct 2 L^2 a row: three real FFTs of 2.5 L log2 L each (half the
+    5 L log2 L of a complex radix-2 FFT) and a complex product of
+    L / 2 + 1 bins at 6 FLOP."""
+    nbytes = 3 * n * L * itemsize
+    flops = n * (3 * 2.5 * L * math.log2(L) + 6 * (L // 2 + 1))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def phase_circconv_timing(torch, dev, cc, card) -> dict:
+    """circconv_rows at the serving shape (4096 x 256) and circconv_single
+    at L = 2048, fp32: each kernel, its plain version, its bound and the
+    library yardstick (the port's FFT bind: rfft, rfft, multiply, irfft,
+    four calls, since no single PyTorch call computes a circular
+    convolution), device time from CUDA-graph replay, in turns."""
+    from repro_torch.core import vsa
+    from repro_torch.kernels.circconv import kernel as k
+    from repro_torch.kernels.circconv import ref
+
+    gen = torch.Generator().manual_seed(71)
+    launches = (cc.rows_launches, cc.single_launches)
+    out = {}
+    for name, shape, kern_fn, plain_fn in (
+            ("rows", CC_SERVE[0], k.circconv_rows, ref.circconv_rows_ref),
+            ("single", (CC_TIMED_L,), k.circconv_single,
+             ref.circconv_single_ref)):
+        x = torch.randn(shape, generator=gen).to(dev)
+        y = torch.randn(shape, generator=gen).to(dev)
+        kern = lambda: kern_fn(x, y)
+        plain = lambda: plain_fn(x, y)
+        library = lambda: vsa._bind_fft(x, y)
+        few = dict(iters=5, replays=3)  # the plain rows version gathers 1 GB
+        p1, k1, k2, p2, l1, l2 = (graph_ms(plain, **few), graph_ms(kern),
+                                  graph_ms(kern), graph_ms(plain, **few),
+                                  graph_ms(library), graph_ms(library))
+        hk = cuda_ms(kern)
+        n = shape[0] if len(shape) == 2 else 1
+        b_ms, b_by, nbytes, flops = circ_bound(n, shape[-1])
+        out[name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": min(l1, l2)}
+        print(f"phase 22: circconv_{name} at {shape} fp32 on {card}: device "
+              f"time (CUDA graph) kernel {k1:.5f}/{k2:.5f} ms, plain "
+              f"{p1:.5f}/{p2:.5f} ms, library {l1:.5f}/{l2:.5f} ms (the "
+              f"FFT bind: rfft, rfft, multiply, irfft), bound {b_ms:.5f} ms "
+              f"({b_by}: {nbytes / 1e6:.4f} MB; {flops / 1e9:.4f} GFLOP by "
+              f"FFT), "
+              f"kernel at {b_ms / min(k1, k2):.1%} of the bound; per call "
+              f"back to back, host included: kernel {hk:.4f} ms", flush=True)
+    cc.rows_launches, cc.single_launches = launches  # not the main path's
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1457,6 +1799,7 @@ def main() -> int:
     from repro_torch.kernels.resonator_step import ref
     from repro_torch.kernels.flash_decode import ops as fd
     from repro_torch.kernels.similarity import ops as sim
+    from repro_torch.kernels.circconv import ops as cc
 
     disable_tf32()
     dev = torch.device("cuda")
@@ -1483,6 +1826,10 @@ def main() -> int:
     local_err = phase_local_kernel(rs, ref, torch, dev)
     sharded = phase_sharded(torch, dev, rs, card)
     local_times = phase_local_timing(torch, dev, rs, ref, card)
+    cc_err = phase_circconv(torch, dev, cc)
+    mimo = phase_mimonet(torch, dev, cc, card)
+    hrr_launches = phase_hrr(torch, dev, cc)
+    cc_times = phase_circconv_timing(torch, dev, cc, card)
 
     src = "src/repro_torch/kernels/resonator_step/csrc/resonator_step.cu"
     kernels = [
@@ -1513,6 +1860,17 @@ def main() -> int:
          "launches": fd_launches[kv], "max_abs_err": fd_err[kv],
          **fd_times[kv]}
         for kv in ("bf16", "int8")
+    ] + [
+        {"name": "circconv_rows", "route": "cuda",
+         "source": "src/repro_torch/kernels/circconv/csrc/circconv.cu",
+         "replaces": "src/repro/kernels/circconv/kernel.py:55",
+         "launches": mimo["launches"], "max_abs_err": cc_err["rows"],
+         **cc_times["rows"]},
+        {"name": "circconv_single_mxu", "route": "cuda",
+         "source": "src/repro_torch/kernels/circconv/csrc/circconv.cu",
+         "replaces": "src/repro/kernels/circconv/kernel.py:101",
+         "launches": hrr_launches, "max_abs_err": cc_err["single"],
+         **cc_times["single"]},
     ]
     print("kernels: " + ", ".join(
         f"{kd['name']} ({kd['launches']} launches on its path, max |kernel "

@@ -94,3 +94,13 @@ def lm_params_from_reference(np_params: dict, cfg, device=DEFAULT_DEVICE):
     return T.LM(cfg, leaf(np_params["embed"], wd), blocks,
                 tree(np_params["final_ln"], torch.float32),
                 None if head is None else leaf(head, wd))
+
+
+def mimonet_params_from_reference(np_params: dict, device=DEFAULT_DEVICE):
+    """The reference's ``mimonet.init`` dict (numpy leaves) as the port's
+    :class:`repro_torch.models.mimonet.MIMONet` on ``device``, every leaf
+    float32 under its own name."""
+    from repro_torch.models.mimonet import MIMONet
+
+    return MIMONet({k: from_numpy(np.asarray(v, np.float32), device)
+                    for k, v in np_params.items()})

@@ -9,9 +9,10 @@ circularly.  Two familiar algebras are corner cases:
 
 Vectors are stored *flat* ``[..., D]``; the :class:`VSAConfig` carries the
 block structure.  Binding runs through ``torch.fft`` (``impl='fft'``, the
-default) or the O(D*L) circulant contraction (``impl='direct'``, the
-oracle).  The reference's ``impl='pallas'`` block circular convolution is a
-TPU kernel still to be ported.
+default), the O(D*L) circulant contraction (``impl='direct'``, the oracle)
+or the block circular convolution kernels (``impl='pallas'``, the
+reference's name: the hand-written CUDA kernels of ``kernels/circconv`` on
+the card, their plain versions on the CPU).
 
 Random hypervectors are drawn from a CPU ``torch.Generator`` (or an int
 seed) and then moved to ``device``, so one seed gives the same atoms on
@@ -26,6 +27,8 @@ from typing import Literal
 import torch
 
 from repro_torch.device import DEFAULT_DEVICE, generator as as_generator, resolve
+from repro_torch.kernels.circconv import ops as cc_ops
+from repro_torch.kernels.circconv import ref as cc_ref
 
 Impl = Literal["fft", "direct", "pallas"]
 
@@ -131,10 +134,7 @@ def bind(x: torch.Tensor, y: torch.Tensor, cfg: VSAConfig,
     elif impl == "direct":
         out = _bind_direct(xb, yb)
     elif impl == "pallas":
-        raise NotImplementedError(
-            "impl='pallas' binds through the circconv kernels, which are "
-            "still to be ported (ROADMAP Queue B: circconv_rows, "
-            "circconv_single_mxu); use impl='fft'")
+        out = cc_ops.block_circconv(xb, yb)
     else:
         raise ValueError(f"unknown impl {impl!r}")
     return cfg.flatten(out).to(x.dtype)
@@ -142,14 +142,16 @@ def bind(x: torch.Tensor, y: torch.Tensor, cfg: VSAConfig,
 
 def involution(x: torch.Tensor, cfg: VSAConfig) -> torch.Tensor:
     """Per-block index reversal y[n] = x[(-n) mod L]; FFT(inv(x)) = conj(FFT(x))."""
-    xb = cfg.blockify(x)
-    inv = torch.cat([xb[..., :1], torch.flip(xb[..., 1:], dims=(-1,))], dim=-1)
-    return cfg.flatten(inv)
+    return cfg.flatten(cc_ref.involute(cfg.blockify(x)))
 
 
 def unbind(q: torch.Tensor, y: torch.Tensor, cfg: VSAConfig,
            impl: Impl | None = None) -> torch.Tensor:
     """Circular correlation: recovers x from q = bind(x, y) (exact for unitary y)."""
+    impl = impl or cfg.impl
+    if impl == "pallas":
+        out = cc_ops.block_circcorr(cfg.blockify(q), cfg.blockify(y))
+        return cfg.flatten(out).to(q.dtype)
     return bind(q, involution(y, cfg), cfg, impl=impl)
 
 

@@ -377,3 +377,121 @@ def test_paged_smoke_decode_launches_the_kernel_once_per_layer(cuda):
         assert bool(torch.isfinite(eng.last_logits).all())
     assert fd.launches - before == cfg.n_layers * 6
     assert eng.decode_dispatches == 6
+
+
+# circconv: the reference test's shapes (tests/test_kernels.py), the serving
+# shapes of MIMONet (4096 and 8192 rows of L = 256: S = 2 and S = 4) and the
+# largest L the design takes;
+# the reference's tolerances (rows: tol * sqrt(L), rtol tol; tol 1e-4 fp32,
+# 0.15 bf16; single: atol 1e-3, rtol 1e-4).
+CC_ROWS = [(1, 64), (4, 128), (32, 256), (7, 100), (130, 64), (16, 1024),
+           (4096, 256), (8192, 256), (2, 16384), (3, 1), (5, 13)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,L", CC_ROWS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_circconv_rows_kernel_matches_plain_version(cuda, n, L, dtype):
+    from repro_torch.kernels.circconv import kernel as cck
+    from repro_torch.kernels.circconv import ops as cc
+    from repro_torch.kernels.circconv import ref as ccr
+
+    gen = torch.Generator().manual_seed(n * 1000 + L)
+    x = torch.randn((n, L), generator=gen).to(cuda, dtype)
+    y = torch.randn((n, L), generator=gen).to(cuda, dtype)
+    before = cc.rows_launches
+    got = cck.circconv_rows(x, y)
+    want = ccr.circconv_rows_ref(x, y)
+    torch.cuda.synchronize()
+    assert cc.rows_launches == before + 1 and got.dtype == dtype
+    tol = 1e-4 if dtype == torch.float32 else 0.15
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.cpu().numpy(),
+                               atol=tol * np.sqrt(L), rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [512, 1024, 777, 2048, 1, 100, 16384])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_circconv_single_kernel_matches_plain_version(cuda, L, dtype):
+    from repro_torch.kernels.circconv import kernel as cck
+    from repro_torch.kernels.circconv import ops as cc
+    from repro_torch.kernels.circconv import ref as ccr
+
+    gen = torch.Generator().manual_seed(L)
+    x = torch.randn((L,), generator=gen).to(cuda, dtype)
+    y = torch.randn((L,), generator=gen).to(cuda, dtype)
+    before = cc.single_launches
+    got = cck.circconv_single(x, y)
+    want = ccr.circconv_single_ref(x, y)
+    torch.cuda.synchronize()
+    assert cc.single_launches == before + 1 and got.dtype == dtype
+    tol = (1e-3, 1e-4) if dtype == torch.float32 else (0.15 * np.sqrt(L), 0.15)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.cpu().numpy(),
+                               atol=tol[0], rtol=tol[1])
+
+
+@pytest.mark.cuda
+def test_pallas_bind_on_the_card_launches_the_circconv_kernels(cuda):
+    from repro_torch.kernels.circconv import ops as cc
+
+    cfg = vsa.VSAConfig(2048, 8, impl="pallas")
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((5, 1, 2048), generator=gen).to(cuda)
+    keys = vsa.random_unitary(gen, (3,), cfg, device=cuda)
+    before = (cc.rows_launches, cc.single_launches)
+    got = vsa.unbind(vsa.bind(x, keys[None], cfg), keys[None], cfg)
+    assert (cc.rows_launches, cc.single_launches) == (before[0] + 2,
+                                                      before[1])
+    want = vsa.unbind(vsa.bind(x, keys[None], cfg, impl="fft"), keys[None],
+                      cfg, impl="fft")
+    assert got.shape == (5, 3, 2048)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=1e-5)
+    hrr = vsa.VSAConfig(2048, 1, impl="pallas")
+    v = torch.randn((2048,), generator=gen).to(cuda)
+    got = vsa.bind(v, v, hrr)
+    assert cc.single_launches == before[1] + 1
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               vsa.bind(v, v, hrr, impl="fft").cpu().numpy(),
+                               atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_circconv_kernels_refuse_bad_inputs(cuda):
+    from repro_torch.kernels.circconv import kernel as cck
+
+    x = torch.zeros((4, 64), device=cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        cck.circconv_rows(x.half(), x.half())
+    with pytest.raises(ValueError, match="differ"):
+        cck.circconv_rows(x, x[:2])
+    with pytest.raises(ValueError, match="contiguous"):
+        cck.circconv_rows(x.t(), x.t())
+    with pytest.raises(ValueError, match="shared memory"):
+        big = torch.zeros((1, cck.MAX_L + 8), device=cuda)
+        cck.circconv_rows(big, big)
+    with pytest.raises(ValueError, match="dims"):
+        cck.circconv_single(x, x)
+
+
+@pytest.mark.cuda
+def test_mimonet_on_the_card_matches_its_fft_run(cuda):
+    import dataclasses
+
+    from repro_torch.data import raven
+    from repro_torch.kernels.circconv import ops as cc
+    from repro_torch.models import mimonet
+
+    cfg = mimonet.MIMONetConfig(vsa=vsa.VSAConfig(2048, 8, impl="pallas"))
+    model = mimonet.init(cfg, 0, device=cuda)
+    b = raven.attribute_classification_batch(np.random.default_rng(0), 64)
+    imgs = torch.from_numpy(b["images"]).reshape(32, 2, 32, 32).to(cuda)
+    before = cc.rows_launches
+    got = mimonet.apply(model, imgs, cfg)
+    assert cc.rows_launches == before + 2
+    want = mimonet.apply(model, imgs, dataclasses.replace(
+        cfg, vsa=vsa.VSAConfig(2048, 8, impl="fft")))
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   atol=1e-5, rtol=1e-4)

@@ -2,13 +2,18 @@
 
 Inputs are made with numpy and fed to both packages.  Bipolar (MAP) ops are
 exact; FFT ops are held to fp32 round-off (atol 1e-5 on unit-norm vectors).
+``impl="pallas"`` (the circconv plain versions on the CPU) is held to every
+reference impl at the reference's own tolerance, atol 1e-4.
 """
+import jax
 import numpy as np
 import pytest
 import torch
 
 from repro.core import vsa as rv
 from repro_torch.core import vsa as tv
+from repro_torch.kernels.circconv import kernel as cc_kernel
+from repro_torch.kernels.circconv import ops as cc_ops
 
 ALGEBRAS = {"map": (256, 256), "block": (256, 4), "hrr": (128, 1)}
 
@@ -113,10 +118,59 @@ def test_random_bipolar_is_pm1_and_device_independent():
 
 
 def test_pallas_impl_waits_for_the_circconv_kernels():
+    """The circconv kernels wait for a CUDA tensor: on CPU tensors
+    ``impl="pallas"`` binds and unbinds through their plain versions and
+    launches neither kernel, and the kernel wrappers refuse CPU tensors."""
     tc = tv.VSAConfig(64, 4, impl="pallas")
-    x = torch.ones(64)
-    with pytest.raises(NotImplementedError, match="Queue B"):
-        tv.bind(x, x, tc)
+    x = torch.from_numpy(_vecs((3, 64), 8, False))
+    y = torch.from_numpy(_vecs((3, 64), 9, False))
+    before = (cc_ops.rows_launches, cc_ops.single_launches)
+    got = tv.bind(x, y, tc)
+    back = tv.unbind(got, y, tc)
+    want = cc_ops.block_circconv_ref(tc.blockify(x), tc.blockify(y))
+    assert (cc_ops.rows_launches, cc_ops.single_launches) == before
+    assert got.dtype == torch.float32 and got.shape == (3, 64)
+    assert torch.equal(got, tc.flatten(want))
+    assert torch.equal(back, tc.flatten(cc_ops.block_circconv_ref(
+        tc.blockify(got), tc.blockify(tv.involution(y, tc)))))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cc_kernel.circconv_rows(tc.blockify(x)[0], tc.blockify(y)[0])
+
+
+def test_pallas_impl_matches_reference_impls():
+    """The reference's ``test_impls_agree`` inputs through the port's pallas
+    bind and the reference's fft, direct and pallas binds (its tolerance)."""
+    rc = rv.VSAConfig(dim=256, blocks=2)
+    tc = tv.VSAConfig(dim=256, blocks=2, impl="pallas")
+    k1, k2 = jax.random.split(jax.random.PRNGKey(1))
+    x = np.array(rv.random_normal(k1, (3,), rc))
+    y = np.array(rv.random_normal(k2, (3,), rc))
+    got = tv.bind(torch.from_numpy(x), torch.from_numpy(y), tc).numpy()
+    for impl in ("fft", "direct", "pallas"):
+        np.testing.assert_allclose(got, np.asarray(rv.bind(x, y, rc, impl=impl)),
+                                   atol=1e-4, err_msg=impl)
+    got = tv.unbind(torch.from_numpy(x), torch.from_numpy(y), tc).numpy()
+    np.testing.assert_allclose(got, np.asarray(rv.unbind(x, y, rc, impl="pallas")),
+                               atol=1e-4)
+
+
+def test_pallas_bind_broadcasts_both_operands():
+    """MIMONet's unbind shape: [N, 1, D] against [1, S, D].  The port's
+    pallas bind equals its fft bind; the reference's ``block_circconv``
+    broadcasts only y to x's shape and raises (a recorded divergence,
+    ROADMAP Queue C)."""
+    rc, tc = rv.VSAConfig(256, 8), tv.VSAConfig(256, 8, impl="pallas")
+    x = _vecs((3, 1, 256), 10, False)
+    y = _vecs((1, 2, 256), 11, False)
+    got = tv.bind(torch.from_numpy(x), torch.from_numpy(y), tc)
+    want = tv.bind(torch.from_numpy(x), torch.from_numpy(y), tc, impl="fft")
+    assert got.shape == (3, 2, 256)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(rv.bind(x, y, rc, impl="direct")),
+                               atol=1e-5)
+    with pytest.raises(ValueError, match="broadcast"):
+        rv.bind(x, y, rc, impl="pallas")
 
 
 def test_cuda_default_raises_without_a_gpu():
