@@ -31,8 +31,9 @@ port from the checkout's sources (into ``build/kernels/``), then:
      PyTorch matmul over a dequantized codebook (device time from CUDA-graph
      replay, and per call with the host included);
  11. holds the paged decode attention kernel ``flash_decode`` against its
-     plain version at the reference test's block-boundary cases and at the
-     serving shape of Llama 3.2 3B, bf16 and int8 pools (2e-5);
+     plain version at the reference test's block-boundary cases, at the
+     serving shape of Llama 3.2 3B, and at rows on and next to the split
+     boundaries of 2, 4 and 8 blocks a cluster, bf16 and int8 pools (2e-5);
  12. serves Llama 3.2 3B at full width (28 layers, d 3072, GQA 24/8, vocab
      128256; random bf16 weights drawn on the card) through
      ``LMEngine(slots=32, paged bs 16, chunk 64)``: 64 greedy requests of
@@ -44,7 +45,10 @@ port from the checkout's sources (into ``build/kernels/``), then:
  14. the int8 KV pool: 16 requests through ``LMEngine`` with the same
      checks, and the greedy contract on 4 prompts;
  15. times flash_decode, its plain version, its bound and one SDPA call at
-     the serving shape, bf16 and int8 (CUDA-graph replay);
+     the serving shape, bf16 and int8 (CUDA-graph replay), with a cold L2
+     (input sets rotated) and warm; prints the split count and the time at
+     each forced one; the kernel must be no slower than SDPA cold and read
+     at no more than 105 % of its bound;
  16. holds the model-shard (LOCAL) resonator kernel against its plain
      version, bitwise, at the reference test's shapes and at the sharded
      serving shape (64 rows a shard, F = 3, M_loc = 5, D = 2048), and two
@@ -79,6 +83,7 @@ or without the repository beside it, it exits nonzero before any result.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import subprocess
@@ -682,6 +687,11 @@ def phase_timing(torch, dev, rs, ref, card):
 FD_LENS = ((1, 1, 1), (3, 8, 9), (8, 16, 24), (9, 17, 23), (16, 24, 8),
            (24, 24, 24), (0, 5, 0))
 FD_ATOL = FD_RTOL = 2e-5
+FD_SPLITS = (2, 4, 8)  # forced split counts held against the plain version
+# Phase 15's cold timing: input sets rotated in one graph, so that a round's
+# live K/V exceeds twice the H100's 50 MB L2 (data sheet).
+FD_COLD_SETS = {"bf16": 4, "int8": 8}
+L2_BYTES = 50e6
 LM_SLOTS, LM_BLOCK, LM_CHUNK = 32, 16, 64
 LM_REQUESTS, LM_NEW = 64, 32
 LM_PROMPTS = (16, 512)  # prompt lengths, uniform, inclusive
@@ -730,15 +740,23 @@ def fd_inputs(torch, b, g, rep, dh, bs, width, kv_dtype, seed, dev,
 
 def phase_flash_decode(torch, dev, fd):
     """flash_decode against its plain version on the card: the reference
-    test's boundary cases, then the serving shape; bf16 and int8 pools.
+    test's boundary cases, the serving shape, and rows on and next to the
+    split boundaries at 2, 4 and 8 blocks a cluster; bf16 and int8 pools.
     Returns the max |kernel - plain| per pool dtype."""
     import numpy as np
 
+    from repro_torch.kernels.flash_decode import kernel as fdk
+
     err = {"bf16": 0.0, "int8": 0.0}
 
-    def check(kv, q, pool, table, lens, what):
+    def check(kv, q, pool, table, lens, what, splits=None):
         before = fd.launches
-        got = fd.flash_decode(q, pool, table, lens)
+        if splits is None:
+            got = fd.flash_decode(q, pool, table, lens)
+        else:
+            got = fdk.flash_decode(q, pool["k"], pool["v"], table, lens,
+                                   k_scale=pool.get("k_scale"),
+                                   v_scale=pool.get("v_scale"), splits=splits)
         want = fd.flash_decode_plain(q, pool["k"], pool["v"], table, lens,
                                      pool.get("k_scale"), pool.get("v_scale"))
         torch.cuda.synchronize()
@@ -772,12 +790,26 @@ def phase_flash_decode(torch, dev, fd):
         d = check(kv, q, pool, table,
                   torch.from_numpy(lens.astype(np.int32)).to(dev),
                   "the serving shape")
+        span = fdk.tile(128, 3)
+        rows = 0
+        for splits in FD_SPLITS:
+            edge = fdk.split_edges(span, splits, width * LM_BLOCK)
+            q, pool, table = fd_inputs(torch, len(edge), 8, 3, 128, LM_BLOCK,
+                                       width, kv, 20 + splits, dev,
+                                       128 ** -0.5)
+            check(kv, q, pool, table,
+                  torch.tensor(edge, dtype=torch.int32, device=dev),
+                  f"split boundaries, {splits} blocks a cluster", splits)
+            rows += len(edge)
         print(f"phase 11: flash_decode ({kv} pool) within atol {FD_ATOL}, "
               f"rtol {FD_RTOL} of its plain version at every boundary case "
               f"of B, G, rep, dh = 3, 2, 2, 16, bs 8, W 3 (rows of length 0 "
-              f"exact zeros) and at the serving shape B={LM_SLOTS} G=8 rep=3 "
-              f"dh=128 bs={LM_BLOCK} W={width}: max |kernel - plain| "
-              f"{err[kv]:.3g} ({d:.3g} at the serving shape)", flush=True)
+              f"exact zeros), at the serving shape B={LM_SLOTS} G=8 rep=3 "
+              f"dh=128 bs={LM_BLOCK} W={width}, and at {rows} rows on and "
+              f"next to the split boundaries (span {span}) at "
+              f"{', '.join(map(str, FD_SPLITS))} blocks a cluster: max "
+              f"|kernel - plain| {err[kv]:.3g} ({d:.3g} at the serving "
+              f"shape)", flush=True)
     return err
 
 
@@ -1101,11 +1133,24 @@ def fd_bound(lens, g, rep, dh, quant: bool) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations", nbytes)
 
 
+def rotate(fns):
+    """A function that calls each of `fns` in turn, round after round: in a
+    captured graph, consecutive launches read different inputs."""
+    it = itertools.cycle(fns)
+    return lambda: next(it)()
+
+
 def phase_fd_timing(torch, dev, fd, lens, card):
     """flash_decode at the serving shape, its plain version, its bound and
     one library call (SDPA over K/V already gathered into a contiguous
     window with a length mask; the gather is not timed), bf16 and int8
-    pools, device time from CUDA-graph replay, in turns."""
+    pools, device time from CUDA-graph replay, in turns.
+
+    Cold: each graph rotates over FD_COLD_SETS input sets whose live K/V
+    together exceed twice the L2, as in serving, where each layer reads its
+    own slice of the pool; the bound share and the comparison with SDPA use
+    these.  Warm: one input set, replayed, partly from the L2.  Also cold:
+    every row at the mean length, and each forced split count."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -1114,59 +1159,93 @@ def phase_fd_timing(torch, dev, fd, lens, card):
     width = -(-LM_MAX_LEN // LM_BLOCK)
     g, rep, dh = 8, 3, 128
     kv_lens = torch.from_numpy(np.asarray(lens, np.int32)).to(dev)
+    even = torch.full_like(kv_lens, int(round(float(np.mean(lens)))))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chosen = k.split_count(LM_SLOTS, g, width * LM_BLOCK, sms)
     out = {}
     for kv in ("bf16", "int8"):
-        q, pool, table = fd_inputs(torch, LM_SLOTS, g, rep, dh, LM_BLOCK,
-                                   width, kv, 17, dev, dh ** -0.5)
-        ks, vs = pool.get("k_scale"), pool.get("v_scale")
-        kern = lambda: k.flash_decode(q, pool["k"], pool["v"], table, kv_lens,
-                                      k_scale=ks, v_scale=vs)
-        plain = lambda: fd.flash_decode_plain(q, pool["k"], pool["v"], table,
-                                              kv_lens, ks, vs)
-        # the library call's inputs: the table window gathered (and for int8
-        # dequantised) into [B, G, W*bs, dh] bf16, a [B, 1, 1, W*bs] mask
-        tab = table.long()
-        kg, vg = pool["k"][tab], pool["v"][tab]
-        if kv == "int8":
-            kg, vg = kg.float() * ks[tab], vg.float() * vs[tab]
-        kg = kg.reshape(LM_SLOTS, width * LM_BLOCK, g, dh).transpose(1, 2)
-        vg = vg.reshape(LM_SLOTS, width * LM_BLOCK, g, dh).transpose(1, 2)
-        kg, vg = kg.to(torch.bfloat16).contiguous(), vg.to(
-            torch.bfloat16).contiguous()
-        qb = q.reshape(LM_SLOTS, g * rep, 1, dh).to(torch.bfloat16)
-        mask = (torch.arange(width * LM_BLOCK, device=dev)[None, :]
-                < kv_lens[:, None])[:, None, None, :]
-        library = lambda: F.scaled_dot_product_attention(
-            qb, kg, vg, attn_mask=mask, scale=1.0, enable_gqa=True)
-        launches = fd.launches
-        p1, k1, k2, p2, l1, l2 = (graph_ms(plain), graph_ms(kern),
-                                  graph_ms(kern), graph_ms(plain),
-                                  graph_ms(library), graph_ms(library))
-        # the same positions spread evenly over the rows: how much of the
-        # kernel's time the longest row sets (one block per row walks it)
-        even = torch.full_like(kv_lens, int(round(float(np.mean(lens)))))
-        k_even = graph_ms(lambda: k.flash_decode(
-            q, pool["k"], pool["v"], table, even, k_scale=ks, v_scale=vs))
-        fd.launches = launches  # timing launches are not the main path's
         b_ms, b_by, nbytes = fd_bound(lens, g, rep, dh, kv == "int8")
-        blocks_mb = sum(-(-n // LM_BLOCK) * LM_BLOCK for n in lens) * g * (
-            2 * dh * (1 if kv == "int8" else 2)) / 1e6
-        out[kv] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
-                   "bound_ms": b_ms, "bound_by": b_by,
-                   "library_ms": min(l1, l2)}
+        n_sets = FD_COLD_SETS[kv]
+        if n_sets * nbytes <= 2 * L2_BYTES:
+            raise AssertionError(f"phase 15: {n_sets} sets of {nbytes / 1e6:.1f}"
+                                 " MB do not exceed twice the L2")
+        kern, plain, library = [], [], []
+        for i in range(n_sets):
+            q, pool, table = fd_inputs(torch, LM_SLOTS, g, rep, dh, LM_BLOCK,
+                                       width, kv, 17 + i, dev, dh ** -0.5)
+            ks, vs = pool.get("k_scale"), pool.get("v_scale")
+            kern.append(lambda n=kv_lens, s=None, q=q, p=pool, t=table, ks=ks,
+                        vs=vs: k.flash_decode(q, p["k"], p["v"], t, n,
+                                              k_scale=ks, v_scale=vs,
+                                              splits=s))
+            plain.append(lambda q=q, p=pool, t=table, ks=ks, vs=vs:
+                         fd.flash_decode_plain(q, p["k"], p["v"], t, kv_lens,
+                                               ks, vs))
+            # the library call's inputs: the table window gathered (and for
+            # int8 dequantised) into [B, G, W*bs, dh] bf16, a [B, 1, 1, W*bs]
+            # mask
+            tab = table.long()
+            kg, vg = pool["k"][tab], pool["v"][tab]
+            if kv == "int8":
+                kg, vg = kg.float() * ks[tab], vg.float() * vs[tab]
+            kg = kg.reshape(LM_SLOTS, width * LM_BLOCK, g, dh).transpose(1, 2)
+            vg = vg.reshape(LM_SLOTS, width * LM_BLOCK, g, dh).transpose(1, 2)
+            kg, vg = kg.to(torch.bfloat16).contiguous(), vg.to(
+                torch.bfloat16).contiguous()
+            qb = q.reshape(LM_SLOTS, g * rep, 1, dh).to(torch.bfloat16)
+            mask = (torch.arange(width * LM_BLOCK, device=dev)[None, :]
+                    < kv_lens[:, None])[:, None, None, :]
+            library.append(lambda qb=qb, kg=kg, vg=vg, mask=mask:
+                           F.scaled_dot_product_attention(
+                               qb, kg, vg, attn_mask=mask, scale=1.0,
+                               enable_gqa=True))
+        launches = fd.launches
+        p1, k1, k2, p2, l1, l2 = (graph_ms(rotate(plain)),
+                                  graph_ms(rotate(kern)),
+                                  graph_ms(rotate(kern)),
+                                  graph_ms(rotate(plain)),
+                                  graph_ms(rotate(library)),
+                                  graph_ms(rotate(library)))
+        k_warm, l_warm = graph_ms(kern[0]), graph_ms(library[0])
+        # the same positions spread evenly over the rows: how much of the
+        # kernel's time the longest row sets
+        k_even = graph_ms(rotate([lambda f=f: f(even) for f in kern]))
+        by_split = {s: graph_ms(rotate([lambda f=f, s=s: f(s=s)
+                                        for f in kern]))
+                    for s in (1, 2, 4, 8)}
+        fd.launches = launches  # timing launches are not the main path's
+        ms, lib_ms = min(k1, k2), min(l1, l2)
+        out[kv] = {"ms": ms, "plain_ms": min(p1, p2), "bound_ms": b_ms,
+                   "bound_by": b_by, "library_ms": lib_ms, "warm_ms": k_warm,
+                   "library_warm_ms": l_warm, "splits": chosen}
         print(f"phase 15: flash_decode ({kv} pool) at B={LM_SLOTS} G={g} "
               f"rep={rep} dh={dh} bs={LM_BLOCK} W={width}, mean live length "
-              f"{np.mean(lens):.0f} on {card}: device time (CUDA graph) "
-              f"kernel {k1:.5f}/{k2:.5f} ms, plain {p1:.5f}/{p2:.5f} ms, "
-              f"library {l1:.5f}/{l2:.5f} ms (bf16 SDPA, enable_gqa, length "
-              f"mask, over K/V gathered into a contiguous {width * LM_BLOCK}-"
-              f"position window beforehand; the gather is not timed), bound "
-              f"{b_ms:.5f} ms ({b_by}: {nbytes / 1e6:.2f} MB of live "
-              f"positions, q and out; the live blocks' K/V alone are "
-              f"{blocks_mb:.2f} MB), kernel at {b_ms / min(k1, k2):.1%} of "
-              f"the bound; with every row at the mean length (longest row "
-              f"{max(lens)} now) the kernel takes {k_even:.5f} ms",
+              f"{np.mean(lens):.0f}, {chosen} blocks a cluster (split_count, "
+              f"{sms} SMs) on {card}: device time (CUDA graph), cold L2 "
+              f"({n_sets} input sets rotated, {n_sets * nbytes / 1e6:.1f} MB "
+              f"of live K/V a round): kernel {k1:.5f}/{k2:.5f} ms, plain "
+              f"{p1:.5f}/{p2:.5f} ms, library {l1:.5f}/{l2:.5f} ms (bf16 "
+              f"SDPA, enable_gqa, length mask, over K/V gathered into a "
+              f"contiguous {width * LM_BLOCK}-position window beforehand; the "
+              f"gather is not timed); warm (one set replayed): kernel "
+              f"{k_warm:.5f} ms, library {l_warm:.5f} ms; bound {b_ms:.5f} ms "
+              f"({b_by}: {nbytes / 1e6:.2f} MB of live positions, q and out)"
+              f", kernel at {b_ms / ms:.1%} of the bound cold, "
+              f"{lib_ms / ms:.2f}x the library's speed cold; every row at the "
+              f"mean length (longest row {max(lens)} now): {k_even:.5f} ms "
+              f"({k_even / ms:.2f}x the real lengths' time); by forced split "
+              f"count: " + ", ".join(f"S={s} {t:.5f} ms"
+                                     for s, t in by_split.items()),
               flush=True)
+        if b_ms / ms > 1.05:
+            raise AssertionError(f"phase 15: flash_decode ({kv}) reads at "
+                                 f"{b_ms / ms:.1%} of its HBM bound cold: "
+                                 "the L2 is not cold")
+        if ms > lib_ms:
+            raise AssertionError(f"phase 15: flash_decode ({kv}) {ms:.5f} ms "
+                                 f"cold is slower than SDPA's {lib_ms:.5f}")
+        del kern, plain, library
+        torch.cuda.empty_cache()
     return out
 
 

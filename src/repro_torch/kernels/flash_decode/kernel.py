@@ -1,13 +1,20 @@
 """Wrapper of the CUDA paged decode attention (``csrc/flash_decode.cu``).
 
-The wrapper checks its inputs, allocates the output with ``torch.empty``,
-launches the kernel on the current stream and bumps the launch count in
-:mod:`.ops`.  It takes CUDA tensors only: the CPU path lives in :mod:`.ops`,
-which sends CPU tensors to the plain version in :mod:`.ref`.
+The wrapper checks its inputs, picks the split count from static shapes
+(:func:`split_count`), allocates the output with ``torch.empty``, launches
+the kernel on the current stream (one launch: a grid of clusters, one per
+(row, KV head)) and bumps the launch count in :mod:`.ops`.  It takes CUDA
+tensors only: the CPU path lives in :mod:`.ops`, which sends CPU tensors to
+the plain version in :mod:`.ref`.
+
+:func:`tile` and :func:`split_range` restate the kernel's split arithmetic,
+so that the CPU tests can check its algebra and the card tests can aim at
+its boundaries.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -17,6 +24,60 @@ from repro_torch.kernels.flash_decode.ref import check_scales
 HEAD_DIMS = (16, 32, 64, 128)  # head widths the source instantiates
 MAX_REP = 8  # query heads per KV head the kernel's accumulator holds
 _GRID_Y = 65535
+MAX_SPLITS = 8  # blocks of a cluster: the portable cluster size
+# Blocks per SM that split_count aims for.  Four fit (48-52 KB of shared
+# memory, at most 128 registers a thread); aiming at three picks the split
+# that measured fastest at Llama 3.2 3B's serving shape, S = 2 for 32 slots,
+# both pools (chip_smoke.py phase 15 prints the time at every S): past one
+# wave, clusters wait for a free slot together.
+BLOCKS_PER_SM = 3
+MIN_SPLIT = 64  # positions of the window a split gets at the least
+
+
+def split_count(batch: int, kv_heads: int, window: int,
+                sm_count: int) -> int:
+    """Blocks per (row, KV head): the smallest power of two S <= MAX_SPLITS
+    for which the grid's S * batch * kv_heads blocks fill the card
+    (BLOCKS_PER_SM on each of ``sm_count`` SMs), as long as each split keeps
+    at least MIN_SPLIT positions of the ``window`` (W * bs).  Static shapes
+    only: reading ``kv_lens`` would sync the host and break graph capture."""
+    s = 1
+    while (s < MAX_SPLITS and s * batch * kv_heads < BLOCKS_PER_SM * sm_count
+           and window >= 2 * s * MIN_SPLIT):
+        s *= 2
+    return s
+
+
+def tile(dh: int, rep: int) -> int:
+    """Positions one warp takes at once (``Shape::kBatch``): a split's
+    length is rounded up to it."""
+    return (4 if rep <= 4 else 2) * (256 // dh)
+
+
+def split_range(length: int, splits: int, rank: int, span: int) -> tuple:
+    """Positions ``[start, end)`` that block ``rank`` of a cluster of
+    ``splits`` takes of a row of ``length`` live positions."""
+    share = -(-length // splits)
+    per = -(-share // span) * span
+    start = min(length, rank * per)
+    return start, min(length, start + per)
+
+
+def split_edges(span: int, splits: int, cap: int) -> list:
+    """Row lengths on and next to the boundaries between the blocks of a
+    cluster of ``splits``, where the card checks aim: multiples of the
+    rounding unit ``span`` up to 2 * splits of them and multiples of
+    splits * span up to ``cap``, one either side of each, plus 0 and the
+    full window ``cap``."""
+    marks = {k * span for k in range(1, 2 * splits + 1)}
+    marks |= {k * splits * span for k in range(1, cap // (splits * span) + 1)}
+    return sorted({0, cap} | {n + d for n in marks for d in (-1, 0, 1)
+                              if 0 <= n + d <= cap})
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _lib() -> ctypes.CDLL:
@@ -24,7 +85,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.flash_decode_launch
     if fn.argtypes is None:  # first use in this process
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
         lib.flash_decode_error_string.argtypes = [ctypes.c_int]
         lib.flash_decode_error_string.restype = ctypes.c_char_p
@@ -48,14 +109,17 @@ def _check(name, t, dtypes, shape):
 def flash_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                  table: torch.Tensor, kv_lens: torch.Tensor, *,
                  k_scale: torch.Tensor | None = None,
-                 v_scale: torch.Tensor | None = None) -> torch.Tensor:
+                 v_scale: torch.Tensor | None = None,
+                 splits: int | None = None) -> torch.Tensor:
     """Paged online-softmax decode attention (shapes in :mod:`.ref`):
     q [B, G, rep, dh] fp32; k/v pool [NBP, bs, G, dh] bf16 or int8 (with
     fp32 k/v scales [NBP, bs, G, 1]); table [B, W] int32; kv_lens [B] int32
     -> [B, G, rep, dh] fp32, on q's device and current stream.
 
     ``kv_lens`` is clamped to [0, W * bs] in the kernel, and a block id
-    outside [0, NBP) in a row's live window is masked, never read."""
+    outside [0, NBP) in a row's live window is masked, never read.
+    ``splits`` (1..MAX_SPLITS) overrides :func:`split_count`'s choice of
+    blocks per (row, KV head)."""
     from repro_torch.kernels.flash_decode import ops
 
     check_scales(k_pool, k_scale, v_scale)
@@ -90,6 +154,10 @@ def flash_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     if min(G, bs, W, nbp) < 1 or B > _GRID_Y:
         raise ValueError(f"need G, bs, W, NBP >= 1 and B <= {_GRID_Y}, got "
                          f"B={B} G={G} bs={bs} W={W} NBP={nbp}")
+    if G > _GRID_Y:
+        raise ValueError(f"{G} KV heads; the grid takes at most {_GRID_Y}")
+    if splits is not None and not 1 <= splits <= MAX_SPLITS:
+        raise ValueError(f"splits {splits} not in 1..{MAX_SPLITS}")
     if nbp * bs * G > 2 ** 31 - 1 or W * bs > 2 ** 31 - 1:
         raise ValueError("pool or table too large for 32-bit positions")
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
@@ -99,13 +167,16 @@ def flash_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
         return out
     lib = _lib()
     with torch.cuda.device(q.device):
+        if splits is None:
+            splits = split_count(B, G, W * bs,
+                                 _sm_count(torch.cuda.current_device()))
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_decode_launch(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             k_scale.data_ptr() if quantized else None,
             v_scale.data_ptr() if quantized else None,
             table.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-            B, G, rep, nbp, bs, W, dh, int(quantized), stream)
+            B, G, rep, nbp, bs, W, dh, int(quantized), splits, stream)
     if rc != 0:
         raise RuntimeError(f"flash_decode launch failed: CUDA error {rc} "
                            f"({lib.flash_decode_error_string(rc).decode()})")

@@ -285,11 +285,12 @@ def _fd_inputs(b, g, rep, dh, bs, width, kv_dtype, seed, dev):
             table.to(dev))
 
 
-def _fd_check(q, pool, table, lens):
+def _fd_check(q, pool, table, lens, splits=None):
     from repro_torch.kernels.flash_decode import ops as fd
 
     before = fd.launches
-    got = fd.flash_decode(q, pool, table, lens)
+    got = (fd.flash_decode(q, pool, table, lens) if splits is None
+           else _fd_kernel(q, pool, table, lens, splits))
     want = fd.flash_decode_plain(q, pool["k"], pool["v"], table, lens,
                                  pool.get("k_scale"), pool.get("v_scale"))
     assert fd.launches == before + 1
@@ -355,6 +356,109 @@ def test_flash_decode_kernel_refuses_bad_inputs(cuda):
     q9 = torch.zeros((2, 2, 9, 16), device=cuda)
     with pytest.raises(ValueError, match="query heads"):
         fdk.flash_decode(q9, k, v, table, lens, **s)
+
+
+# The split-KV design at the serving widths of Llama 3.2 3B: a cluster of
+# `splits` blocks per (row, KV head), each taking a run of positions rounded
+# up to a warp's batch (kernel.tile).
+FD_SERVE = dict(g=8, rep=3, dh=128, bs=16, width=35)
+
+
+def _fd_serve_inputs(lens, kv_dtype, seed, dev):
+    f = FD_SERVE
+    q, pool, table = _fd_inputs(len(lens), f["g"], f["rep"], f["dh"], f["bs"],
+                                f["width"], kv_dtype, seed, dev)
+    return (q * f["dh"] ** -0.5, pool, table,
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+def _fd_kernel(q, pool, table, lens, splits=None):
+    from repro_torch.kernels.flash_decode import kernel as fdk
+
+    return fdk.flash_decode(q, pool["k"], pool["v"], table, lens,
+                            k_scale=pool.get("k_scale"),
+                            v_scale=pool.get("v_scale"), splits=splits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("splits", [2, 4, 8])
+def test_flash_decode_kernel_at_split_boundaries(cuda, kv_dtype, splits):
+    from repro_torch.kernels.flash_decode import kernel as fdk
+
+    f = FD_SERVE
+    span = fdk.tile(f["dh"], f["rep"])
+    lens = fdk.split_edges(span, splits, f["bs"] * f["width"])
+    q, pool, table, kv_lens = _fd_serve_inputs(lens, kv_dtype, splits, cuda)
+    got = _fd_check(q, pool, table, kv_lens, splits=splits)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))  # lens[0] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_flash_decode_kernel_one_full_row_among_rows_of_one(cuda, kv_dtype):
+    f = FD_SERVE
+    lens = [1] * 3 + [f["bs"] * f["width"]] + [1] * 4
+    _fd_check(*_fd_serve_inputs(lens, kv_dtype, 1, cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_flash_decode_kernel_one_row_at_the_full_window(cuda, kv_dtype):
+    from repro_torch.kernels.flash_decode import kernel as fdk
+
+    f = FD_SERVE
+    window = f["bs"] * f["width"]
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert fdk.split_count(1, f["g"], window, sms) > 1  # the row is split
+    _fd_check(*_fd_serve_inputs([window], kv_dtype, 2, cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("splits", [None, 8])
+def test_flash_decode_kernel_zero_rows_in_a_split_batch(cuda, kv_dtype,
+                                                        splits):
+    f = FD_SERVE
+    lens = [0, 300, 0, f["bs"] * f["width"], 0, 17]
+    q, pool, table, kv_lens = _fd_serve_inputs(lens, kv_dtype, 3, cuda)
+    got = _fd_check(q, pool, table, kv_lens, splits=splits)
+    assert bool(torch.isfinite(got).all())
+    for b in (0, 2, 4):
+        assert torch.equal(got[b], torch.zeros_like(got[b]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_flash_decode_kernel_is_bitwise_repeatable(cuda, kv_dtype):
+    lens = np.random.default_rng(4).integers(0, 561, 32).tolist()
+    args = _fd_serve_inputs(lens, kv_dtype, 4, cuda)
+    first, second = _fd_kernel(*args), _fd_kernel(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_flash_decode_kernel_graph_replay_equals_eager(cuda, kv_dtype):
+    from repro_torch.kernels.flash_decode import ops as fd
+
+    lens = np.random.default_rng(5).integers(0, 561, 32).tolist()
+    args = _fd_serve_inputs(lens, kv_dtype, 5, cuda)
+    eager = _fd_kernel(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _fd_kernel(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = _fd_kernel(*args)
+    before = fd.launches
+    graph.replay()
+    torch.cuda.synchronize()
+    assert fd.launches == before  # a replay calls no wrapper
+    assert torch.equal(replayed, eager)
 
 
 @pytest.mark.cuda

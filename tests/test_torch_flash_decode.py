@@ -20,6 +20,7 @@ import torch
 
 from repro.kernels.flash_decode import kernel as rk
 from repro.kernels.flash_decode import ops as rfd
+from repro_torch.kernels.flash_decode import kernel as rk_torch
 from repro_torch.kernels.flash_decode import ops as fd
 from repro_torch.kernels.flash_decode import ref as fd_ref
 
@@ -171,3 +172,125 @@ def test_zero_length_rows():
     v = tpool["v"][ttable[0].long()].float().reshape(-1, G, DH)
     mean_v = v.mean(0)[:, None, :].expand(G, REP, DH)
     torch.testing.assert_close(dense[0], mean_v, rtol=1e-6, atol=1e-6)
+
+
+# -- the CUDA kernel's split-KV arithmetic, checked on the CPU ---------------
+#
+# On the card a cluster of S blocks serves each (row, KV head): block `rank`
+# takes the positions kernel.split_range gives it, leaves (m, l, acc) of
+# that range, and rank 0 merges the S states in rank order.  The emulation
+# below does the same in fp32 torch; it must give the plain version's result
+# within 2e-6 (fp32 sums in another order), with exact zeros for rows of
+# length 0 and empty ranges merged away.
+
+SERVE_SMS = 132  # an H100 SXM's SMs
+
+
+@pytest.mark.parametrize("batch,kv_heads,window,sms", [
+    (32, 8, 560, SERVE_SMS), (1, 8, 560, SERVE_SMS), (3, 2, 24, SERVE_SMS),
+    (64, 8, 4096, SERVE_SMS), (1, 1, 1 << 20, SERVE_SMS), (7, 3, 200, 16),
+    (1024, 8, 560, SERVE_SMS), (1, 1, 1, 1)])
+def test_split_count_is_a_power_of_two_up_to_the_cluster_size(
+        batch, kv_heads, window, sms):
+    s = rk_torch.split_count(batch, kv_heads, window, sms)
+    assert s in (1, 2, 4, 8)
+    assert s == 1 or window // s >= rk_torch.MIN_SPLIT  # the floor
+    # the smallest such count: half of it would not fill the card or keep
+    # the floor
+    if s > 1:
+        assert (s // 2) * batch * kv_heads < rk_torch.BLOCKS_PER_SM * sms
+
+
+def test_split_count_fills_the_card_at_the_serving_shape():
+    """Llama 3.2 3B at 32 slots: 8 KV heads, a 560-position window."""
+    s = rk_torch.split_count(32, 8, 560, SERVE_SMS)
+    assert s * 32 * 8 >= rk_torch.BLOCKS_PER_SM * SERVE_SMS
+    assert (s // 2) * 32 * 8 < rk_torch.BLOCKS_PER_SM * SERVE_SMS
+    assert s == 2
+
+
+@pytest.mark.parametrize("window,want", [
+    (1, 1), (64, 1), (127, 1), (128, 2), (255, 2), (256, 4), (511, 4),
+    (512, 8), (560, 8)])
+def test_split_count_keeps_its_floor_at_small_windows(window, want):
+    """One row of one head would take 8 blocks; the window caps it."""
+    assert rk_torch.split_count(1, 1, window, SERVE_SMS) == want
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("span", [1, 32, 64, 256])
+def test_split_ranges_partition_every_row(splits, span):
+    for length in list(range(0, 130)) + [255, 256, 257, 560, 4097]:
+        ranges = [rk_torch.split_range(length, splits, r, span)
+                  for r in range(splits)]
+        assert ranges[0][0] == 0 and ranges[-1][1] == length
+        for (a, b), (c, d) in zip(ranges, ranges[1:]):
+            assert a <= b == c <= d  # in rank order, no gap, no overlap
+        for a, b in ranges[:-1]:
+            assert b == length or (b - a) % span == 0  # whole spans
+
+
+def _split_merge(q, kp, vp, table, lens, splits, span, ks=None, vs=None):
+    """(m, l, acc) of each rank's positions, merged in rank order."""
+    B, G, rep, dh = q.shape
+    bs = kp.shape[1]
+    out = torch.full_like(q, float("nan"))
+    for b in range(B):
+        n = int(lens[b])
+        pos = torch.arange(n)
+        ids, off = table[b, pos // bs].long(), pos % bs
+        k, v = kp[ids, off].float(), vp[ids, off].float()  # [n, G, dh]
+        if ks is not None:
+            k, v = k * ks[ids, off], v * vs[ids, off]
+        parts = []
+        for rank in range(splits):
+            lo, hi = rk_torch.split_range(n, splits, rank, span)
+            if lo == hi:
+                parts.append((torch.full((G, rep), -1e30),
+                              torch.zeros(G, rep), torch.zeros(G, rep, dh)))
+                continue
+            s = torch.einsum("grd,tgd->grt", q[b], k[lo:hi])
+            m = s.amax(-1)
+            p = torch.exp(s - m[..., None])
+            parts.append((m, p.sum(-1),
+                          torch.einsum("grt,tgd->grd", p, v[lo:hi])))
+        mx = parts[0][0]
+        for m, _, _ in parts[1:]:
+            mx = torch.maximum(mx, m)
+        l_sum, acc = torch.zeros(G, rep), torch.zeros(G, rep, dh)
+        for m, l_part, a_part in parts:
+            e = torch.exp(m - mx)
+            l_sum = l_sum + l_part * e
+            acc = acc + a_part * e[..., None]
+        out[b] = acc / l_sum.clamp_min(1e-30)[..., None]
+    return out
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+def test_split_and_merge_gives_the_plain_result(kv_dtype, splits):
+    from repro_torch.nn.layers import _quant_kv
+
+    b, g, rep, dh, bs, width = 9, 2, 3, 128, 16, 12
+    rng = np.random.default_rng(splits)
+    q = torch.from_numpy(rng.standard_normal((b, g, rep, dh), np.float32)
+                         * np.float32(dh ** -0.5))
+    k = torch.from_numpy(rng.standard_normal((b * width + 1, bs, g, dh),
+                                             np.float32))
+    v = torch.from_numpy(rng.standard_normal((b * width + 1, bs, g, dh),
+                                             np.float32))
+    if kv_dtype == "int8":
+        (kp, ks), (vp, vs) = _quant_kv(k), _quant_kv(v)
+    else:
+        kp, vp, ks, vs = k.to(torch.bfloat16), v.to(torch.bfloat16), None, None
+    table = torch.from_numpy(rng.permutation(b * width).astype(np.int32)
+                             .reshape(b, width))
+    span = rk_torch.tile(dh, rep)
+    # lengths of 0, on and next to the span's multiples, the full window
+    lens = torch.tensor([0, 1, span - 1, span, span + 1, 2 * span + 1, 100,
+                         0, bs * width], dtype=torch.int32)
+    got = _split_merge(q, kp, vp, table, lens, splits, span, ks, vs)
+    want = fd_ref.flash_decode_plain(q, kp, vp, table, lens, ks, vs)
+    torch.testing.assert_close(got, want, atol=2e-6, rtol=2e-6)
+    for row in (0, 7):
+        assert torch.equal(got[row], torch.zeros_like(got[row]))
