@@ -14,7 +14,9 @@ port from the checkout's sources (into ``build/kernels/``), then:
      dense kernel was launched exactly once per sweep, and replays 32 rows
      through the same engine code on the CPU, which must agree bit for bit;
   4. runs a masked factorization (cardinalities 5/6/10) on the card;
-  5. times each kernel, its plain version and its bound at N = 256;
+  5. times the dense and masked kernels, their plain versions and their
+     bound at N = 256 (device time from CUDA-graph replay, in turns, and per
+     call with the host included), and the dense kernel at each row ceiling;
   6. holds the int8 similarity kernel against its plain version at the
      reference test's shapes and the serving shape, with the reference's
      tolerance, plus an argmax-preservation case;
@@ -641,7 +643,9 @@ def phase_sim_timing(torch, dev, sim, card):
 
 
 def phase_timing(torch, dev, rs, ref, card):
-    """Per-sweep kernel and plain-version times at the engine's shape."""
+    """Per-sweep kernel and plain-version times at the engine's shape:
+    device time from CUDA-graph replay in turns (plain, kernel, kernel,
+    plain), and per call back to back, host included."""
     from repro_torch.kernels.resonator_step import kernel as k
 
     gen = torch.Generator().manual_seed(5)
@@ -650,6 +654,7 @@ def phase_timing(torch, dev, rs, ref, card):
     cbs = bipolar(gen, (F, M, D), dev)
     mask = torch.stack([torch.arange(M) < s for s in (5, 6, 10)]).to(dev)
     times = {}
+    launches = (rs.launches, rs.masked_launches)
     for name, kern, plain, masked in (
             ("resonator_step_batch",
              lambda: k.resonator_step_batch(qs, est, cbs),
@@ -659,24 +664,30 @@ def phase_timing(torch, dev, rs, ref, card):
              lambda: ref.resonator_step_batch_masked_ref(qs, est, cbs, mask),
              True)):
         # plain, kernel, kernel, plain: the two versions in turns
-        p1, k1, k2, p2 = (cuda_ms(plain), cuda_ms(kern), cuda_ms(kern),
-                          cuda_ms(plain))
+        p1, k1, k2, p2 = (graph_ms(plain), graph_ms(kern), graph_ms(kern),
+                          graph_ms(plain))
+        hk, hp = cuda_ms(kern), cuda_ms(plain)
         b_ms, b_by = bound(ENGINE_ROWS, masked)
         times[name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
                        "bound_ms": b_ms, "bound_by": b_by}
         print(f"phase 5: {name} at N={ENGINE_ROWS} F={F} M={M} D={D} on "
-              f"{card}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} "
-              f"ms, bound {b_ms:.4f} ms ({b_by}), kernel at "
-              f"{b_ms / min(k1, k2):.1%} of the bound", flush=True)
+              f"{card}: device time (CUDA graph) kernel {k1:.5f}/{k2:.5f} ms, "
+              f"plain {p1:.5f}/{p2:.5f} ms, bound {b_ms:.5f} ms ({b_by}), "
+              f"kernel at {b_ms / min(k1, k2):.1%} of the bound; per call "
+              f"back to back, host included: kernel {hk:.4f} ms, plain "
+              f"{hp:.4f} ms", flush=True)
     rows_line = []
-    for tn in (1, 2, 4):
-        rows, _, _ = k.launch_geometry(
+    for tn in (1, 2, 4, 8, 16):
+        geo = k.launch_geometry(
             ENGINE_ROWS, F, M, D, tn,
             torch.cuda.get_device_properties(dev).multi_processor_count)
-        t = cuda_ms(lambda: k.resonator_step_batch(qs, est, cbs, tn=tn))
-        rows_line.append(f"rows={rows}: {t:.4f} ms")
-    print(f"phase 5: dense kernel by rows per block (tn ceiling) on {card}: "
-          + ", ".join(rows_line), flush=True)
+        fn = lambda: k.resonator_step_batch(qs, est, cbs, tn=tn)
+        rows_line.append(f"tn={tn} {geo}: {graph_ms(fn):.5f} ms (CUDA graph), "
+                         f"{cuda_ms(fn):.4f} ms per call back to back")
+    rs.launches, rs.masked_launches = launches  # not the main path's
+    print(f"phase 5: dense kernel by rows per block (tn ceiling; geometry "
+          f"as launch_geometry returns it) on {card}: " + "; ".join(rows_line),
+          flush=True)
     return times
 
 

@@ -10,48 +10,85 @@ launches the kernel on the current stream and bumps its launch count in
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
 
-WARPS = 8  # warps per block, kWarps in the source
 MAX_M = 1024  # codebook rows the design supports
+MAX_MT = 8  # codebook rows of a score tile
+MAX_CLUSTER = 8  # blocks of a cluster, the portable most
+MAX_ROWS = 16  # rows of a cluster's tile
+MIN_SLICE = 256  # floats of D a block of a cluster takes at least
 SMEM_BUDGET = 200 * 1024  # dynamic shared memory a block may take (of 227 KB)
 _INT_MAX = 2 ** 31 - 1
 
 
-def launch_geometry(n: int, f: int, m: int, d: int, tn: int,
-                    sms: int) -> tuple:
-    """``(rows, dc, smem_bytes)`` of one launch.
+class Geometry(NamedTuple):
+    rows: int  # rows of a cluster's tile
+    clusters: int  # ceil(N / rows)
+    csize: int  # blocks of a cluster, each a slice of D
+    ds: int  # floats of D a block owns, a multiple of 4
+    dc: int  # floats of the slice staged at once, a multiple of 4
+    mt: int  # codebook rows of a score tile
+    smem: int  # bytes of dynamic shared memory a block
 
-    ``rows`` (rows per block) is the largest power of two up to the ceiling
-    ``tn`` that still gives at least one block per SM; ``dc`` is the chunk of
-    D staged in shared memory: all of D where ``M * D`` fits, else the
-    largest multiple of 32 that does.  Raises ``ValueError`` for shapes
-    beyond the design.
+
+def smem_floats(f: int, m: int, rows: int, dc: int) -> int:
+    """Shared floats of a block: the codebook chunk [F, M, dc], the unbound
+    estimates u [rows, F, dc], partial scores [rows, F, M], weights [rows,
+    F, M] and the mask [F, M] (each padded to 4)."""
+    return (dc * (f * m + rows * f) + -(-rows * f * m // 4) * 4
+            + rows * f * -(-m // 4) * 4 + -(-f * m // 4) * 4)
+
+
+def launch_geometry(n: int, f: int, m: int, d: int, tn: int,
+                    sms: int) -> Geometry:
+    """The geometry of one launch.
+
+    D is cut into ``csize`` slices (one block of the cluster each, at least
+    MIN_SLICE floats, at most MAX_CLUSTER); ``rows``, a power of two up to
+    the ceiling ``tn`` (and MAX_ROWS), grows while the grid keeps a block
+    for each of ``sms`` SMs; ``dc`` is the whole slice where the block's
+    tiles fit SMEM_BUDGET, else the largest multiple of 4 that does (rows
+    halve where not even 4 floats fit).  M is cut into ``ceil(M / 8)``
+    score tiles of equal size, so M <= 8 is one exact tile and M = 10 two
+    of 5.  Raises ``ValueError`` for shapes beyond the design.
     """
     if min(n, f, d) < 1:
         raise ValueError(f"need N, F, D >= 1, got N={n} F={f} D={d}")
     if not 1 <= m <= MAX_M:
         raise ValueError(f"codebook rows M={m} outside the supported 1..{MAX_M}")
-    if f > 65535:
-        raise ValueError(f"F={f} exceeds the grid's 65535 factor blocks")
     if n * f * max(m, d) > _INT_MAX:
         raise ValueError(f"N*F*max(M, D) = {n * f * max(m, d)} exceeds 2^31-1")
     if tn < 1:
         raise ValueError(f"row ceiling tn must be >= 1, got {tn}")
-
-    def fixed(rows):  # shared floats besides the codebook chunk
-        return (rows * max(1, WARPS // rows) + rows) * m
-
+    csize = max(1, min(MAX_CLUSTER, d // MIN_SLICE))
+    ds = -(-d // (4 * csize)) * 4  # ceil(D / csize), up to a multiple of 4
+    mt = -(-m // -(-m // MAX_MT))
     rows = 1
-    while (rows * 2 <= tn and -(-n // (rows * 2)) * f >= sms
-           and 4 * (fixed(rows * 2) + m * min(d, 32)) <= SMEM_BUDGET):
+    while (rows * 2 <= min(tn, MAX_ROWS)
+           and -(-n // (rows * 2)) * csize >= sms):
         rows *= 2
-    dc = (SMEM_BUDGET // 4 - fixed(rows)) // m
-    dc = d if dc >= d else dc // 32 * 32
-    return rows, dc, 4 * (m * dc + fixed(rows))
+    while True:
+        fixed = smem_floats(f, m, rows, 0)
+        dc = min(ds, (SMEM_BUDGET // 4 - fixed) // (f * m + rows * f)
+                 // 4 * 4)
+        if dc >= 4:
+            break
+        if rows == 1:
+            raise ValueError(f"F={f} x M={m} codebook rows do not fit the "
+                             f"block's {SMEM_BUDGET} bytes of shared memory")
+        rows //= 2
+    return Geometry(rows, -(-n // rows), csize, ds, dc, mt,
+                    4 * smem_floats(f, m, rows, dc))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(name, t, shape):
@@ -79,13 +116,21 @@ def _launch(qs, est, codebooks, mask, activation, tn, local=False):
     _check("qs", qs, (N, D))
     _check("est", est, (N, F, D))
     if mask is not None:
-        _check("valid_mask", mask, (F, M))
+        if not isinstance(mask, torch.Tensor):
+            raise ValueError("valid_mask must be an [F, M] tensor")
+        if mask.dtype not in (torch.bool, torch.uint8, torch.float32):
+            mask = mask.to(torch.float32)
+        if tuple(mask.shape) != (F, M):
+            raise ValueError(f"valid_mask has shape {tuple(mask.shape)}, "
+                             f"expected {(F, M)}")
+        mask = mask.contiguous()
     devs = {t.device for t in (qs, est, codebooks, mask) if t is not None}
     if len(devs) != 1:
         raise ValueError(f"inputs lie on several devices: {sorted(map(str, devs))}")
     dev = qs.device
-    rows, dc, _ = launch_geometry(
-        N, F, M, D, tn, torch.cuda.get_device_properties(dev).multi_processor_count)
+    g = launch_geometry(N, F, M, D, tn, _sm_count(dev.index))
+    vec = D % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (qs, est,
+                                                               codebooks))
     alpha = torch.empty((N, F, M), dtype=torch.float32, device=dev)
     new_est = torch.empty((N, F, D), dtype=torch.float32, device=dev)
     lib = _lib()
@@ -94,8 +139,10 @@ def _launch(qs, est, codebooks, mask, activation, tn, local=False):
         rc = lib.resonator_step_launch(
             qs.data_ptr(), est.data_ptr(), codebooks.data_ptr(),
             None if mask is None else mask.data_ptr(),
-            alpha.data_ptr(), new_est.data_ptr(), N, F, M, D, rows, dc,
-            int(activation == "abs"), int(local), stream)
+            int(mask is not None and mask.dtype != torch.float32),
+            alpha.data_ptr(), new_est.data_ptr(), N, F, M, D, g.rows,
+            g.clusters, g.csize, g.ds, g.dc, g.mt, g.smem,
+            int(activation == "abs"), int(local), int(vec), stream)
     if rc != 0:
         raise RuntimeError(f"resonator_step launch failed: CUDA error {rc} "
                            f"({lib.resonator_step_error_string(rc).decode()})")
@@ -107,7 +154,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.resonator_step_launch
     if fn.argtypes is None:  # first use in this process
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p] * 4 + [i] + [p] * 2 + [i] * 14 + [p]
         fn.restype = ctypes.c_int
         lib.resonator_step_error_string.argtypes = [ctypes.c_int]
         lib.resonator_step_error_string.restype = ctypes.c_char_p
@@ -134,9 +181,7 @@ def resonator_step_batch_masked(qs: torch.Tensor, est: torch.Tensor,
     [N, F, M] with invalid rows at -1e9, new_est [N, F, D])."""
     from repro_torch.kernels.resonator_step import ops
 
-    mask = valid_mask.to(torch.float32).contiguous() \
-        if isinstance(valid_mask, torch.Tensor) else valid_mask
-    out = _launch(qs, est, codebooks, mask, activation, tn)
+    out = _launch(qs, est, codebooks, valid_mask, activation, tn)
     ops.masked_launches += 1
     return out
 
@@ -152,10 +197,8 @@ def resonator_step_batch_local(qs: torch.Tensor, est: torch.Tensor,
     saturated)."""
     from repro_torch.kernels.resonator_step import ops
 
-    if valid_mask_local is None:
-        valid_mask_local = torch.ones(cb_local.shape[:2], device=qs.device)
-    mask = valid_mask_local.to(torch.float32).contiguous()
-    out = _launch(qs, est, cb_local, mask, activation, tn, local=True)
+    out = _launch(qs, est, cb_local, valid_mask_local, activation, tn,
+                  local=True)
     ops.local_launches += 1
     return out
 

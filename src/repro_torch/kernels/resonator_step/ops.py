@@ -25,8 +25,8 @@ local_launches = 0  # model-shard kernel launches in this process
 class FusedConfig:
     """Kernel-level knobs for the fused resonator sweep.
 
-    ``tn`` is the ceiling on rows per thread block
-    (:func:`.kernel.launch_geometry` picks the block's rows below it).
+    ``tn`` is the ceiling on the rows of a cluster's tile
+    (:func:`.kernel.launch_geometry` picks the tile's rows below it).
     """
 
     tn: int = 128

@@ -1,5 +1,5 @@
-// Codebook similarity against an int8 codebook, dequantized in registers,
-// written for Hopper (sm_90a), fp32 on the CUDA cores.
+// Codebook similarity against an int8 codebook, written for Hopper (sm_90a),
+// fp32 on the CUDA cores.
 //
 // Replaces the TPU kernel src/repro/kernels/similarity/kernel.py:
 // similarity_int8 (factorizer Step 2 with int8 codebooks, paper Sec. IV-B):
@@ -15,23 +15,29 @@
 // (N = 256 rows, M = 10, D = 1024) one launch must read q (1.05 MB), w
 // (10 KB) and the scales and write the scores (10 KB): 1.07 MB, 0.32 us at
 // the memory rate, against 5.2 MFLOP, 0.08 us at the fp32 rate.  Bound by
-// bytes, and in practice by the launch itself.  What the design does about
-// the bytes: each block stages a [TM, DC] tile of w in shared memory once and
-// serves it to all of its query rows, so w crosses device memory once per
-// row tile and q once per M tile (once in all at M <= TM); q is read with
-// 16-byte loads along D, neighbouring lanes on neighbouring addresses; the
-// int8 codebook is never widened in device memory.
+// bytes, and in practice by the launch, one memory latency and the block's
+// reduction.  Tensor cores are not the lever: the operations are too few to
+// matter, and TF32 or bf16 inputs would change the fp32 products.
 //
-// Geometry (chosen by the Python wrapper, kernel.py::launch_geometry): grid
-// (ceil(N / kWarps), ceil(M / TM)), kWarps warps per block, one query row per
-// warp.  TM in {8, 16, 32} codebook rows per block; each lane keeps TM
-// partial sums in registers over its share of D, D is walked in chunks of DC
-// lanes (DC a multiple of 16, TM * DC bytes of shared memory), and each
-// partial sum is reduced by shuffles in a fixed order: no atomics, so the
-// result is the same bits from run to run.  VEC selects 16-byte q loads and
-// 4-byte w loads (D % 4 == 0 and aligned pointers); otherwise one element at
-// a time, which serves any D.  Rows of the w tile past M are staged as zeros
-// and never written out.
+// Design: a block owns a tile of TN query rows and TM codebook rows and
+// splits D over its 128 threads, each thread taking every 128th group of 4
+// elements.  A thread loads its TN q vectors (16-byte loads) and TM packed
+// int8 words (4-byte loads) of a group together, ahead of any arithmetic,
+// widens each int8 word once (an exact byte permute into the mantissa of
+// 2^23 and a subtract; no I2F) and uses it for all TN rows, so every
+// codebook element is dequantized once per block and every q element is read
+// once per M tile.  The TN x TM partial sums are then reduced in a fixed
+// order: a reduce-scatter across each warp's lanes (31 shuffles for up to 32
+// sums; lane l ends holding sum l) and a sum over the 4 warps in warp order
+// through shared memory.  No atomics: a launch's bits repeat.
+//
+// Geometry (kernel.py::launch_geometry): M is cut into ceil(M / 16) tiles of
+// TM = ceil(M / tiles) rows, so M <= 16 (M = 10 on the serving path) is
+// covered exactly; TN in {4, 2, 1} is the largest with TN * TM <= 32 whose
+// grid (ceil(N / TN), tiles) still has a block for every SM.  Rows past N or
+// M in a ragged tile read the last row again and are never written.  VEC
+// selects the 16-byte path (D % 4 == 0, q 16-byte and w 4-byte aligned);
+// otherwise one element at a time, which serves any D and alignment.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,121 +46,167 @@ namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
+constexpr int kMaxTile = 32;  // TN * TM: one warp's lanes hold the sums
 
-template <int TM, bool VEC>
+// Four int8 values of a little-endian word, exactly, as fp32: each byte
+// plus 128 is placed in the mantissa of 2^23, and 2^23 + 128 subtracted.
+__device__ __forceinline__ float4 widen(int packed) {
+  const unsigned u = static_cast<unsigned>(packed) ^ 0x80808080u;
+  const float bias = 8388736.0f;  // 2^23 + 128
+  return make_float4(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - bias,
+                     __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - bias,
+                     __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - bias,
+                     __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - bias);
+}
+
+// Reduce-scatter of P sums across a warp: afterwards v[0] of lane l holds
+// the warp's total of sum (l mod P).  Offset O halves the sums a lane keeps
+// once P == 2 * O; before that every lane adds all P of its partner's.
+template <int N, int P, int O>
+__device__ __forceinline__ void reduce_scatter(float (&v)[N], int lane) {
+  if constexpr (O >= 1) {
+    if constexpr (P == 2 * O) {
+      const bool hi = (lane & O) != 0;
+#pragma unroll
+      for (int i = 0; i < O; ++i) {
+        const float keep = hi ? v[i + O] : v[i];
+        const float send = hi ? v[i] : v[i + O];
+        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+      }
+      reduce_scatter<N, O, O / 2>(v, lane);
+    } else {
+#pragma unroll
+      for (int i = 0; i < P; ++i)
+        v[i] += __shfl_xor_sync(0xffffffffu, v[i], O);
+      reduce_scatter<N, P, O / 2>(v, lane);
+    }
+  }
+}
+
+__host__ __device__ constexpr int pow2_at_least(int v) {
+  int p = 1;
+  while (p < v) p *= 2;
+  return p;
+}
+
+template <int TN, int TM>
 __global__ void __launch_bounds__(kThreads)
 similarity_int8_kernel(const float* __restrict__ q,        // [N, D]
                        const int8_t* __restrict__ w,       // [M, D]
                        const float* __restrict__ scale,    // [M]
                        float* __restrict__ out,            // [N, M]
-                       int N, int M, int D, int dc) {
-  extern __shared__ __align__(16) int8_t ws[];  // [TM][dc]  w tile chunk
+                       int N, int M, int D, int vec) {
+  constexpr int V = TN * TM, P = pow2_at_least(V);
+  static_assert(V <= kMaxTile, "a tile's sums must fit one warp's lanes");
+  __shared__ float red[kWarps][P];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n = blockIdx.x * kWarps + warp;
-  const int m0 = blockIdx.y * TM;
-  const bool live = n < N;  // warp-uniform; idle warps still stage and sync
-
-  float acc[TM];
+  const int n0 = blockIdx.x * TN, m0 = blockIdx.y * TM;
+  size_t qrow[TN], wrow[TM];  // element offsets of the tile's rows
 #pragma unroll
-  for (int k = 0; k < TM; ++k) acc[k] = 0.f;
-
-  for (int d0 = 0; d0 < D; d0 += dc) {
-    const int len = min(dc, D - d0);
-    __syncthreads();  // the previous chunk's readers are done
-    if (VEC) {
-      const int len4 = len >> 2, dc4 = dc >> 2;
-      const int* w4 = reinterpret_cast<const int*>(w);
-      int* ws4 = reinterpret_cast<int*>(ws);
-      for (int i = tid; i < TM * len4; i += kThreads) {
-        const int m = i / len4, j = i - m * len4;
-        ws4[m * dc4 + j] =
-            m0 + m < M ? w4[((size_t)(m0 + m) * D + d0) / 4 + j] : 0;
-      }
-    } else {
-      for (int i = tid; i < TM * len; i += kThreads) {
-        const int m = i / len, j = i - m * len;
-        ws[m * dc + j] = m0 + m < M ? w[(size_t)(m0 + m) * D + d0 + j] : 0;
-      }
-    }
-    __syncthreads();
-    if (!live) continue;
-    if (VEC) {
-      const float4* q4 =
-          reinterpret_cast<const float4*>(q + (size_t)n * D + d0);
-      const int* ws4 = reinterpret_cast<const int*>(ws);
-      const int dc4 = dc >> 2;
-      for (int j = lane; j < (len >> 2); j += 32) {
-        const float4 qv = q4[j];
+  for (int r = 0; r < TN; ++r) qrow[r] = (size_t)min(n0 + r, N - 1) * D;
 #pragma unroll
-        for (int k = 0; k < TM; ++k) {
-          const int packed = ws4[k * dc4 + j];
-          const float w0 = (float)(int8_t)(packed & 0xff);
-          const float w1 = (float)(int8_t)((packed >> 8) & 0xff);
-          const float w2 = (float)(int8_t)((packed >> 16) & 0xff);
-          const float w3 = (float)(int8_t)((packed >> 24) & 0xff);
-          float a = acc[k];
-          a = fmaf(qv.x, w0, a);
-          a = fmaf(qv.y, w1, a);
-          a = fmaf(qv.z, w2, a);
-          a = fmaf(qv.w, w3, a);
-          acc[k] = a;
+  for (int k = 0; k < TM; ++k) wrow[k] = (size_t)min(m0 + k, M - 1) * D;
+
+  float acc[P];
+#pragma unroll
+  for (int i = 0; i < P; ++i) acc[i] = 0.f;
+
+  if (vec) {
+    const int d4 = D >> 2;
+    for (int j = tid; j < d4; j += kThreads) {
+      float4 qv[TN];
+      int wv[TM];
+#pragma unroll
+      for (int r = 0; r < TN; ++r)
+        qv[r] = __ldg(reinterpret_cast<const float4*>(q + qrow[r]) + j);
+#pragma unroll
+      for (int k = 0; k < TM; ++k)
+        wv[k] = __ldg(reinterpret_cast<const int*>(w + wrow[k]) + j);
+#pragma unroll
+      for (int k = 0; k < TM; ++k) {
+        const float4 x = widen(wv[k]);
+#pragma unroll
+        for (int r = 0; r < TN; ++r) {
+          float a = acc[r * TM + k];
+          a = fmaf(qv[r].x, x.x, a);
+          a = fmaf(qv[r].y, x.y, a);
+          a = fmaf(qv[r].z, x.z, a);
+          a = fmaf(qv[r].w, x.w, a);
+          acc[r * TM + k] = a;
         }
       }
-    } else {
-      const float* qn = q + (size_t)n * D + d0;
-      for (int j = lane; j < len; j += 32) {
-        const float qv = qn[j];
+    }
+  } else {
+    for (int j = tid; j < D; j += kThreads) {
+      float qv[TN], x[TM];
 #pragma unroll
-        for (int k = 0; k < TM; ++k)
-          acc[k] = fmaf(qv, (float)ws[k * dc + j], acc[k]);
-      }
+      for (int r = 0; r < TN; ++r) qv[r] = __ldg(q + qrow[r] + j);
+#pragma unroll
+      for (int k = 0; k < TM; ++k) x[k] = (float)__ldg(w + wrow[k] + j);
+#pragma unroll
+      for (int k = 0; k < TM; ++k)
+#pragma unroll
+        for (int r = 0; r < TN; ++r)
+          acc[r * TM + k] = fmaf(qv[r], x[k], acc[r * TM + k]);
     }
   }
-  if (!live) return;  // after the last __syncthreads: safe to leave
 
+  reduce_scatter<P, P, 16>(acc, lane);
+  if (lane < P) red[warp][lane] = acc[0];
+  __syncthreads();
+  if (tid < V) {
+    float s = red[0][tid];
 #pragma unroll
-  for (int k = 0; k < TM; ++k) {
-    float v = acc[k];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_xor_sync(0xffffffffu, v, off);
-    if (lane == 0 && m0 + k < M)
-      out[(size_t)n * M + m0 + k] = v * scale[m0 + k];
+    for (int wi = 1; wi < kWarps; ++wi) s += red[wi][tid];
+    const int n = n0 + tid / TM, m = m0 + tid % TM;
+    if (n < N && m < M) out[(size_t)n * M + m] = s * scale[m];
   }
 }
 
-template <int TM>
+typedef int (*launch_fn)(const float*, const int8_t*, const float*, float*,
+                         int, int, int, int, cudaStream_t);
+
+template <int TN, int TM>
 int launch(const float* q, const int8_t* w, const float* scale, float* out,
-           int N, int M, int D, int dc, bool vec, cudaStream_t stream) {
-  const dim3 grid((N + kWarps - 1) / kWarps, (M + TM - 1) / TM);
-  const size_t smem = (size_t)TM * dc;
-  if (vec)
-    similarity_int8_kernel<TM, true>
-        <<<grid, kThreads, smem, stream>>>(q, w, scale, out, N, M, D, dc);
-  else
-    similarity_int8_kernel<TM, false>
-        <<<grid, kThreads, smem, stream>>>(q, w, scale, out, N, M, D, dc);
+           int N, int M, int D, int vec, cudaStream_t stream) {
+  const dim3 grid((N + TN - 1) / TN, (M + TM - 1) / TM);
+  similarity_int8_kernel<TN, TM>
+      <<<grid, kThreads, 0, stream>>>(q, w, scale, out, N, M, D, vec);
   return (int)cudaGetLastError();
 }
+
+template <int TN, int TM>
+constexpr launch_fn pick() {
+  if constexpr (TN * TM <= kMaxTile) return launch<TN, TM>;
+  else return nullptr;
+}
+
+#define SIM_ROW(TM) {pick<1, TM>(), pick<2, TM>(), pick<4, TM>()}
+// kLaunch[TM - 1][log2 TN]
+const launch_fn kLaunch[16][3] = {
+    SIM_ROW(1),  SIM_ROW(2),  SIM_ROW(3),  SIM_ROW(4),
+    SIM_ROW(5),  SIM_ROW(6),  SIM_ROW(7),  SIM_ROW(8),
+    SIM_ROW(9),  SIM_ROW(10), SIM_ROW(11), SIM_ROW(12),
+    SIM_ROW(13), SIM_ROW(14), SIM_ROW(15), SIM_ROW(16)};
+#undef SIM_ROW
 
 }  // namespace
 
 extern "C" {
 
-// Launches one similarity_int8 on `stream`.  tm is 8, 16 or 32; dc a
-// multiple of 16 with tm * dc <= 48 KB; vec requires D % 4 == 0, q 16-byte
-// aligned and w 4-byte aligned.  Returns cudaGetLastError() after the launch
-// (0 on success), or cudaErrorInvalidValue for a tm the kernel lacks.
+// Launches one similarity_int8 on `stream`.  tm in 1..16 codebook rows and
+// tn in {1, 2, 4} query rows a block, tn * tm <= 32; vec requires D % 4 ==
+// 0, q 16-byte aligned and w 4-byte aligned.  Returns cudaGetLastError()
+// after the launch (0 on success), or cudaErrorInvalidValue for a tile the
+// kernel lacks.
 int similarity_int8_launch(const float* q, const int8_t* w,
                            const float* scale, float* out, int N, int M,
-                           int D, int tm, int dc, int vec, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (tm) {
-    case 8: return launch<8>(q, w, scale, out, N, M, D, dc, vec != 0, s);
-    case 16: return launch<16>(q, w, scale, out, N, M, D, dc, vec != 0, s);
-    case 32: return launch<32>(q, w, scale, out, N, M, D, dc, vec != 0, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+                           int D, int tn, int tm, int vec, void* stream) {
+  const int col = tn == 1 ? 0 : tn == 2 ? 1 : tn == 4 ? 2 : -1;
+  if (tm < 1 || tm > 16 || col < 0 || kLaunch[tm - 1][col] == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return kLaunch[tm - 1][col](q, w, scale, out, N, M, D, vec,
+                              static_cast<cudaStream_t>(stream));
 }
 
 const char* similarity_int8_error_string(int code) {

@@ -8,31 +8,40 @@ which sends CPU tensors to the plain version in :mod:`.ref`.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import _build
 
-TILE_ROWS = (8, 16, 32)  # codebook rows per block the source instantiates
-SMEM_BUDGET = 48 * 1024  # bytes of the w tile, no opt-in attribute needed
+MAX_TM = 16  # codebook rows a block's tile may hold
+TN_CHOICES = (4, 2, 1)  # query rows a block's tile may hold, largest first
+MAX_TILE = 32  # tn * tm: one warp's lanes hold the tile's sums
 _GRID_Y = 65535
 
 
-def launch_geometry(n: int, m: int, d: int) -> tuple:
-    """``(tm, dc)`` of one launch: ``tm`` codebook rows per block, the
-    smallest instantiated tile that covers M (else the largest), and ``dc``
-    the chunk of D staged at a time, a multiple of 16 with ``tm * dc``
-    within the shared-memory budget.  Raises ``ValueError`` for shapes
-    beyond the design."""
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def launch_geometry(n: int, m: int, d: int, sms: int) -> tuple:
+    """``(tn, tm)`` of one launch: ``tm`` codebook rows per block, M cut
+    into ``ceil(M / 16)`` tiles of equal size (so M <= 16 is covered
+    exactly), and ``tn`` query rows per block, the largest of 4, 2, 1 with
+    ``tn * tm <= 32`` whose grid keeps a block for each of ``sms`` SMs.
+    Raises ``ValueError`` for shapes beyond the design."""
     if min(n, m, d) < 1:
         raise ValueError(f"need N, M, D >= 1, got N={n} M={m} D={d}")
     if max(n * max(m, d), m * d) > 2 ** 31 - 1:
         raise ValueError(f"N={n} M={m} D={d}: a flat index exceeds 2^31-1")
-    tm = next((t for t in TILE_ROWS if t >= m), TILE_ROWS[-1])
-    if -(-m // tm) > _GRID_Y:
+    tiles = -(-m // MAX_TM)
+    if tiles > _GRID_Y:
         raise ValueError(f"M={m} needs more than {_GRID_Y} codebook tiles")
-    dc = min(-(-d // 16) * 16, SMEM_BUDGET // tm // 16 * 16)
-    return tm, dc
+    tm = -(-m // tiles)
+    tn = next((t for t in TN_CHOICES
+               if t * tm <= MAX_TILE and -(-n // t) * tiles >= sms), 1)
+    return tn, tm
 
 
 def _lib() -> ctypes.CDLL:
@@ -78,7 +87,7 @@ def similarity_int8(q: torch.Tensor, w_int8: torch.Tensor,
     devs = {t.device for t in (q, w_int8, w_scale)}
     if len(devs) != 1:
         raise ValueError(f"inputs lie on several devices: {sorted(map(str, devs))}")
-    tm, dc = launch_geometry(N, M, D)
+    tn, tm = launch_geometry(N, M, D, _sm_count(q.device.index))
     vec = D % 4 == 0 and q.data_ptr() % 16 == 0 and w_int8.data_ptr() % 4 == 0
     out = torch.empty((N, M), dtype=torch.float32, device=q.device)
     lib = _lib()
@@ -86,7 +95,7 @@ def similarity_int8(q: torch.Tensor, w_int8: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.similarity_int8_launch(
             q.data_ptr(), w_int8.data_ptr(), w_scale.data_ptr(),
-            out.data_ptr(), N, M, D, tm, dc, int(vec), stream)
+            out.data_ptr(), N, M, D, tn, tm, int(vec), stream)
     if rc != 0:
         raise RuntimeError(f"similarity_int8 launch failed: CUDA error {rc} "
                            f"({lib.similarity_int8_error_string(rc).decode()})")

@@ -256,6 +256,139 @@ def test_rng_stream_on_the_card_equals_the_cpu(cuda, tag):
         rng.normal(keys, sweep, tag, 3, 1001), atol=1e-6, rtol=0)
 
 
+# -- edges of the resonator and similarity designs -------------------------
+
+# (N, F, M, D): M one below, at and one above the score tile's switches (4
+# rows a unit up to M = 8, 2 from 9; one tile up to 16, two from 17), D one
+# below, at and one above the cluster's switches (one 256-float slice a
+# block: D < 512 one block, D >= 2048 eight), D not a multiple of 4, N = 1
+# and ragged last row tiles.
+RS_EDGES = [(1, 3, 7, 2048), (9, 3, 8, 2048), (17, 2, 9, 1024),
+            (33, 3, 15, 513), (5, 2, 16, 2050), (3, 4, 17, 2047),
+            (8, 3, 10, 255), (257, 3, 10, 4099), (130, 3, 10, 511),
+            (64, 3, 5, 2049)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,f,m,d", RS_EDGES)
+@pytest.mark.parametrize("mode", ["dense", "masked", "local"])
+@pytest.mark.parametrize("act", ["identity", "abs"])
+def test_resonator_kernel_at_the_designs_edges(cuda, n, f, m, d, mode, act):
+    """Every mode and activation, bitwise against the plain version on +-1
+    inputs, at the edges of the cluster, slice and tile geometry."""
+    gen = torch.Generator().manual_seed(n * 13 + m * 7 + d)
+    cbs = _bipolar(gen, (f, m, d), cuda)
+    qs = _bipolar(gen, (n, d), cuda)
+    est = _bipolar(gen, (n, f, d), cuda)
+    mask = torch.stack([torch.arange(m) < max(1, (m * (i + 1)) // f)
+                        for i in range(f)]).to(cuda)
+    if mode == "dense":
+        got = ops.fused_resonator_step_batch(qs, est, cbs, act)
+        want = ref.resonator_step_batch_ref(qs, est, cbs, act)
+    elif mode == "masked":
+        got = ops.fused_resonator_step_batch_masked(qs, est, cbs, mask, act)
+        want = ref.resonator_step_batch_masked_ref(qs, est, cbs, mask, act)
+    else:
+        got = ops.fused_resonator_step_batch_local(qs, est, cbs, mask, act)
+        want = ref.resonator_step_batch_local_ref(qs, est, cbs, mask, act)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tn", [1, 2, 4, 16])
+def test_resonator_kernel_at_every_row_ceiling(cuda, tn):
+    """The FusedConfig(tn=...) ceiling changes the rows a cluster takes, not
+    the bits, at the engine's shape."""
+    gen = torch.Generator().manual_seed(tn)
+    cbs = _bipolar(gen, (3, 10, 2048), cuda)
+    qs, est = _bipolar(gen, (256, 2048), cuda), _bipolar(gen, (256, 3, 2048),
+                                                         cuda)
+    mask = torch.stack([torch.arange(10) < s for s in (5, 6, 10)]).to(cuda)
+    got = ops.fused_resonator_step_batch_masked(
+        qs, est, cbs, mask, "abs", fused=ops.FusedConfig(tn=tn))
+    want = ref.resonator_step_batch_masked_ref(qs, est, cbs, mask, "abs")
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bool, torch.uint8, torch.float32])
+def test_resonator_kernel_takes_masks_of_each_type(cuda, dtype):
+    """A mask given as bool, uint8 or float32 reaches the kernel as it is
+    (no cast launched) and reads as its cast to bool, as in the plain
+    version."""
+    gen = torch.Generator().manual_seed(5)
+    cbs = _bipolar(gen, (3, 10, 2048), cuda)
+    qs, est = _bipolar(gen, (64, 2048), cuda), _bipolar(gen, (64, 3, 2048),
+                                                         cuda)
+    mask = torch.stack([torch.arange(10) < s for s in (5, 0, 10)]).to(cuda)
+    for got, want in (
+            (ops.fused_resonator_step_batch_masked(qs, est, cbs,
+                                                   mask.to(dtype), "abs"),
+             ref.resonator_step_batch_masked_ref(qs, est, cbs, mask, "abs")),
+            (ops.fused_resonator_step_batch_local(qs, est, cbs,
+                                                  mask.to(dtype), "abs"),
+             ref.resonator_step_batch_local_ref(qs, est, cbs, mask, "abs"))):
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dense", "masked", "local"])
+def test_resonator_kernel_is_bitwise_repeatable(cuda, mode):
+    """Gaussian queries (scores not integers): two launches on the same
+    inputs give the same bits; the sums run in a fixed order."""
+    gen = torch.Generator().manual_seed(77)
+    cbs = _bipolar(gen, (3, 10, 2048), cuda)
+    qs = torch.randn((256, 2048), generator=gen).to(cuda)
+    est = _bipolar(gen, (256, 3, 2048), cuda)
+    mask = torch.stack([torch.arange(10) < s for s in (5, 6, 10)]).to(cuda)
+    fn = {"dense": lambda: ops.fused_resonator_step_batch(qs, est, cbs),
+          "masked": lambda: ops.fused_resonator_step_batch_masked(
+              qs, est, cbs, mask),
+          "local": lambda: ops.fused_resonator_step_batch_local(
+              qs, est, cbs, mask)}[mode]
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+# (N, M, D): M one below, at and one above the tile's switches (4 query rows
+# a block up to 8 codebook rows, 2 up to 16; one tile up to 16 rows, two up
+# to 32, three from 33), D not a multiple of 4, N = 1 and ragged row tiles.
+SIM_EDGES = [(1, 7, 1024), (129, 8, 1024), (257, 9, 1023), (64, 15, 2050),
+             (3, 16, 1024), (130, 17, 1025), (5, 31, 4), (7, 32, 1024),
+             (128, 33, 1024), (600, 4, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,d", SIM_EDGES)
+def test_similarity_kernel_at_the_designs_edges(cuda, n, m, d):
+    gen = torch.Generator().manual_seed(n + 3 * m + d)
+    q = torch.randn((n, d), generator=gen).to(cuda)
+    w = quantize(torch.randn((m, d), generator=gen)).to(cuda)
+    got = sim_kernel.similarity_int8(q, w.values, w.scale)
+    want = sim_ops.similarity_int8_ref(q, w.values, w.scale)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=1e-3)
+    assert (got - want).abs().max().item() < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,d", [(256, 10, 1024), (128, 257, 1024)])
+def test_similarity_kernel_is_bitwise_repeatable(cuda, n, m, d):
+    gen = torch.Generator().manual_seed(n + m)
+    q = torch.randn((n, d), generator=gen).to(cuda)
+    w = quantize(torch.randn((m, d), generator=gen)).to(cuda)
+    a = sim_kernel.similarity_int8(q, w.values, w.scale)
+    b = sim_kernel.similarity_int8(q, w.values, w.scale)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
 # -- flash_decode ------------------------------------------------------------
 
 # every block-boundary case for bs = 8, W = 3 (tests/test_flash_decode.py),

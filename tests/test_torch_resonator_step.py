@@ -114,24 +114,37 @@ def test_fused_config_type_is_checked():
     (64, 3, 1024, 4096, 128), (100, 2, 700, 33, 16), (3, 4, 10, 100000, 1),
 ])
 def test_launch_geometry_fits_the_card(n, f, m, d, tn):
-    rows, dc, smem = tk.launch_geometry(n, f, m, d, tn, sms=132)
-    assert rows & (rows - 1) == 0 and 1 <= rows <= tn
-    assert dc == d or (dc % 32 == 0 and 32 <= dc < d)
-    assert smem <= tk.SMEM_BUDGET < 227 * 1024
-    if rows > 1:  # never fewer blocks than SMs once rows grew past one
-        assert -(-n // rows) * f >= 132
+    g = tk.launch_geometry(n, f, m, d, tn, sms=132)
+    assert g.rows & (g.rows - 1) == 0 and 1 <= g.rows <= min(tn, tk.MAX_ROWS)
+    assert g.clusters == -(-n // g.rows)
+    # D cut into csize slices of ds (a multiple of 4), none of them empty
+    assert 1 <= g.csize <= tk.MAX_CLUSTER and g.ds % 4 == 0
+    assert (g.csize - 1) * g.ds < d <= g.csize * g.ds
+    assert g.dc % 4 == 0 and 4 <= g.dc <= g.ds
+    # M in equal score tiles of at most 8 rows, fewer than a tile wasted
+    tiles = -(-m // g.mt)
+    assert 1 <= g.mt <= tk.MAX_MT and tiles * g.mt - m < tiles
+    assert g.smem == 4 * tk.smem_floats(f, m, g.rows, g.dc)
+    assert g.smem <= tk.SMEM_BUDGET < 227 * 1024
+    if g.rows > 1:  # never fewer blocks than SMs once rows grew past one
+        assert g.clusters * g.csize >= 132
 
 
 def test_launch_geometry_at_the_engine_shape():
-    # the whole [10, 2048] fp32 codebook (80 KB) is staged in one chunk
-    rows, dc, smem = tk.launch_geometry(256, 3, 10, 2048, 128, sms=132)
-    assert (rows, dc) == (4, 2048)
-    assert smem == 4 * (10 * 2048 + (8 + 4) * 10)
+    """Clusters of 8 blocks, each a 256-float slice of D, 8 rows a cluster:
+    256 blocks fill the 132 SMs, and every factor's codebook slice
+    (3 x 10 x 256 floats) stays resident from the scores to the
+    projection (one chunk); M = 10 is two exact score tiles of 5."""
+    g = tk.launch_geometry(256, 3, 10, 2048, 128, sms=132)
+    assert g == (8, 32, 8, 256, 256, 5,
+                 4 * (256 * (30 + 8 * 3) + 240 + 8 * 3 * 12 + 32))
+    assert g.clusters * g.csize >= 132 and g.dc == g.ds
 
 
 @pytest.mark.parametrize("shape,match", [
     ((4, 3, 1025, 256), "M=1025"), ((4, 3, 0, 256), "M=0"),
     ((0, 3, 10, 256), "N=0"), ((4, 3, 10, 0), "D=0"),
+    ((1, 20, 1024, 256), "do not fit"),
 ])
 def test_launch_geometry_rejects_unsupported_shapes(shape, match):
     with pytest.raises(ValueError, match=match):

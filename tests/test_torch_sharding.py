@@ -117,13 +117,15 @@ def test_local_step_without_a_mask_is_all_rows_valid():
 @pytest.mark.parametrize("m_loc", [1, 5])
 def test_launch_geometry_takes_a_shards_row_block(m_loc):
     """The serving shape's local block (64 rows a shard, F = 3, M_loc = 5,
-    D = 2048) and a one-row block: one block per row (192 blocks fill the
-    132 SMs better than fewer, larger ones), the whole of D staged at once,
-    within the shared-memory budget."""
-    rows, dc, smem = tk.launch_geometry(64, 3, m_loc, 2048, 128, 132)
-    assert (rows, dc) == (1, 2048)
-    assert smem == 4 * (m_loc * 2048 + (tk.WARPS + 1) * m_loc)
-    assert smem <= tk.SMEM_BUDGET
+    D = 2048) and a one-row block: clusters of 8 blocks over D, 2 rows a
+    cluster, so 256 blocks fill the 132 SMs; each block's slice of the row
+    block stays resident (one chunk), within the shared-memory budget, and
+    M_loc is one exact score tile."""
+    g = tk.launch_geometry(64, 3, m_loc, 2048, 128, 132)
+    assert (g.rows, g.clusters, g.csize, g.ds, g.dc, g.mt) == \
+        (2, 32, 8, 256, 256, m_loc)
+    assert g.smem == 4 * tk.smem_floats(3, m_loc, 2, 256)
+    assert g.smem <= tk.SMEM_BUDGET
 
 
 # -- ShardedEngine against the reference Engine ------------------------------

@@ -81,23 +81,33 @@ def test_the_kernel_wrapper_refuses_cpu_tensors():
     assert ops.launches == before
 
 
-@pytest.mark.parametrize("n,m,d,tm,dc", [
-    (256, 10, 1024, 16, 1024),  # serving shape: one tile, all of D at once
-    (1, 1, 1, 8, 16),
-    (3, 1000, 100, 32, 112),  # D padded up to a multiple of 16
-    (128, 257, 1024, 32, 1024),
-    (5, 8, 5000, 8, 5008),
-    (5, 33, 8192, 32, 1536),  # D chunked: 32 x 1536 bytes = 48 KB
+@pytest.mark.parametrize("n,m,d,tn,tm", [
+    (256, 10, 1024, 1, 10),  # serving shape: M in one exact tile, 256 blocks
+    (1, 1, 1, 1, 1),
+    (3, 1000, 100, 1, 16),  # 63 tiles of 16 rows: 8 rows past M
+    (128, 257, 1024, 2, 16),  # 17 tiles of 16, two rows a block
+    (5, 8, 5000, 1, 8),
+    (5, 33, 8192, 1, 11),  # 3 exact tiles of 11
 ])
-def test_launch_geometry(n, m, d, tm, dc):
-    assert k.launch_geometry(n, m, d) == (tm, dc)
-    assert dc % 16 == 0 and tm * dc <= k.SMEM_BUDGET
+def test_launch_geometry(n, m, d, tn, tm):
+    assert k.launch_geometry(n, m, d, sms=132) == (tn, tm)
+    tiles = -(-m // tm)
+    assert tn * tm <= k.MAX_TILE and tm <= k.MAX_TM
+    assert tiles * tm - m < tiles  # fewer than one row a tile wasted
+    if tn > 1:  # a larger tile only where the grid still fills the SMs
+        assert -(-n // tn) * tiles >= 132
+
+
+@pytest.mark.parametrize("n,m,d", [(256, 10, 1024), (128, 257, 1024)])
+def test_launch_geometry_fills_the_sms_at_the_timed_shapes(n, m, d):
+    tn, tm = k.launch_geometry(n, m, d, sms=132)
+    assert -(-n // tn) * -(-m // tm) >= 132
 
 
 def test_launch_geometry_refuses_shapes_beyond_the_design():
     with pytest.raises(ValueError, match=">= 1"):
-        k.launch_geometry(0, 10, 64)
+        k.launch_geometry(0, 10, 64, sms=132)
     with pytest.raises(ValueError, match="2\\^31"):
-        k.launch_geometry(2 ** 20, 10, 2 ** 12)
+        k.launch_geometry(2 ** 20, 10, 2 ** 12, sms=132)
     with pytest.raises(ValueError, match="tiles"):
-        k.launch_geometry(1, 32 * 65536, 1)
+        k.launch_geometry(1, 32 * 65536, 1, sms=132)
