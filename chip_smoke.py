@@ -65,18 +65,26 @@ port from the checkout's sources (into ``build/kernels/``), then:
      serving shape (CUDA-graph replay);
  19. holds both circular convolution kernels against their plain versions
      at the reference test's shapes (fp32 and bf16, the reference's
-     tolerances) and at both of MIMONet's serving shapes (4096 and 8192
-     rows of L = 256, S = 2 and S = 4);
+     tolerances), at both of MIMONet's serving shapes (4096 and 8192 rows of
+     L = 256, S = 2 and S = 4), and on broadcast operands read as views
+     (MIMONet's bind and unbind, x shared over streams, neither; one y row
+     shared at the reference's shapes; groups around the tensor-core mode's
+     threshold), in both of circconv_rows' modes;
  20. serves MIMONet at full width (D = 2048, B = 8, hidden 2048 x 2, random
      fp32 weights) through ``vsa.bind(impl="pallas")``: 4096 RAVEN panels at
      S = 2 (8 batches of 256 items), then at S = 4 (4 batches); exactly 2
      rows launches a batch, logits, loss and accuracies against the same
-     model with impl="fft", stream separation, and a bind -> mean -> unbind
-     round trip through the kernel;
+     model with impl="fft", stream separation, an eager batch's device
+     operations and peak allocation beyond its inputs, and a bind -> mean ->
+     unbind round trip through the kernel;
  21. the HRR corner: one item at S = 1, B = 1 (L = 2048) through ``apply``,
      exactly 2 single-row launches, logits against the fft run;
- 22. times both circconv kernels, their plain versions, their bounds (bytes
-     against an FFT's operations) and the FFT bind (CUDA-graph replay);
+ 22. times circconv_rows at MIMONet's bind and unbind shapes (S = 2, 4) and
+     on 4096 independent rows, and circconv_single at L = 2048 beside an
+     empty kernel: each kernel, its plain version, its bound (distinct
+     bytes against an FFT's operations) and the FFT bind, and
+     vsa.bind / vsa.unbind with impl="pallas" against impl="fft"
+     (CUDA-graph replay, in turns); a kernel below its bound raises;
  23. prints one JSON line describing every kernel, the card line, and as
      the last line ``{"ok": true, "device": {...}}``.
 
@@ -1566,11 +1574,36 @@ MIMO_ATOL, MIMO_RTOL = 1e-5, 1e-4  # logits of order 0.05: fp32 binds in
 # another order (kernel against cuFFT), through the same cuBLAS GEMMs
 
 
+def cc_broadcast_cases() -> list:
+    """(name, x shape, y shape) of phase 19's broadcast operands, read by
+    circconv_rows as views: at MIMONet's launch shapes (N items, S streams,
+    B blocks, L) the keys shared over items (the bind), x shared over
+    streams, both (the unbind), neither; the reference test's shapes
+    against one shared y row; groups of rows just below, at and above the
+    tensor-core mode's threshold (kernel.MMA_MIN_ROWS)."""
+    from repro_torch.kernels.circconv import kernel as k
+
+    N, B, L = MIMO_ITEMS, MIMO_BLOCKS, MIMO_DIM // MIMO_BLOCKS
+    cases = []
+    for S in MIMO_STREAMS:
+        cases += [(f"bind S={S}", (N, S, B, L), (1, S, B, L)),
+                  (f"x over streams S={S}", (N, 1, B, L), (N, S, B, L)),
+                  (f"unbind S={S}", (N, 1, B, L), (1, S, B, L)),
+                  (f"neither S={S}", (N, S, B, L), (N, S, B, L))]
+    cases += [(f"y shared ({n}, {L_})", (n, L_), (1, L_))
+              for n, L_ in CC_ROWS_CASES]
+    cases += [(f"group of {g}", (g, 2, 128), (1, 2, 128))
+              for g in (k.MMA_MIN_ROWS - 1, k.MMA_MIN_ROWS,
+                        k.MMA_MIN_ROWS + 1)]
+    return cases
+
+
 def phase_circconv(torch, dev, cc) -> dict:
     """Both circconv kernels against their plain versions on the card, at
-    the reference test's shapes and tolerances, fp32 and bf16, plus every
-    shape the MIMONet path launches (CC_SERVE).  Returns each kernel's max
-    |kernel - plain| in fp32."""
+    the reference test's shapes and tolerances, fp32 and bf16, every shape
+    the MIMONet path launches (CC_SERVE), and broadcast operands read as
+    views (cc_broadcast_cases), in both of circconv_rows' modes.  Returns
+    each kernel's max |kernel - plain| in fp32."""
     from repro_torch.kernels.circconv import kernel as k
     from repro_torch.kernels.circconv import ref
 
@@ -1595,12 +1628,27 @@ def phase_circconv(torch, dev, cc) -> dict:
                 "circconv_rows", k.circconv_rows(x, y),
                 ref.circconv_rows_ref(x, y), tol * L ** 0.5, tol,
                 f"N={n} L={L} {dtype}"))
+        modes = {}
+        for name, xs, ys in cc_broadcast_cases():
+            shape = torch.broadcast_shapes(xs, ys)
+            L = shape[-1]
+            x = torch.randn(xs, generator=gen).to(dev, dtype).expand(shape)
+            y = torch.randn(ys, generator=gen).to(dev, dtype).expand(shape)
+            mode = k.rows_plan(shape, x.stride(), y.stride()).mode
+            modes[mode] = modes.get(mode, 0) + 1
+            got = k.circconv_rows(x, y).reshape(-1, L)
+            worst = max(worst, check(
+                "circconv_rows", got,
+                ref.circconv_rows_ref(x.reshape(-1, L).contiguous(),
+                                      y.reshape(-1, L).contiguous()),
+                tol * L ** 0.5, tol, f"{name} {dtype} ({mode} mode)"))
         if dtype == torch.float32:  # the path's dtype
             err["rows"] = worst
         print(f"phase 19: circconv_rows within the reference's tolerance "
               f"(atol {tol} sqrt(L), rtol {tol}) of its plain version at "
-              f"{dtype}, (N, L) in {CC_ROWS_CASES + CC_SERVE}: max |diff| "
-              f"{worst:.3g}", flush=True)
+              f"{dtype}, (N, L) in {CC_ROWS_CASES + CC_SERVE} and "
+              f"{len(cc_broadcast_cases())} broadcast cases ({modes}): max "
+              f"|diff| {worst:.3g}", flush=True)
     worst = 0.0
     for L in CC_SINGLE_L:
         x = torch.randn((L,), generator=gen).to(dev)
@@ -1733,10 +1781,13 @@ def phase_mimonet(torch, dev, cc, card) -> dict:
                          iters=5, replays=4)
         prof = device_profile(
             torch, lambda: mm.apply(model, batches[0]["images"], cfg))
+        peak = {run.vsa.impl: peak_beyond_inputs(
+            torch, lambda run=run: mm.apply(model, batches[0]["images"], run))
+            for run in (cfg, fft)}
         cc.rows_launches = launches_before
         out[S] = {"wall_ms": wall * 1e3, "panels_per_s": MIMO_PANELS / wall,
                   "batch_ms": float(np.mean(walls)) * 1e3,
-                  "device_ms": dev_ms}
+                  "device_ms": dev_ms, "peak_mb": peak}
         print(f"phase 20: MIMONet S={S} at full width on {card}: "
               f"{sum(p.numel() for p in model.parameters()):,} fp32 "
               f"parameters, {MIMO_PANELS} panels in {len(batches)} batches "
@@ -1749,8 +1800,9 @@ def phase_mimonet(torch, dev, cc, card) -> dict:
               f"{wall_f * 1e3:.2f} ms, {MIMO_PANELS / wall_f:.1f} panels/s, "
               f"per batch {np.mean(walls_f) * 1e3:.3f} ms, device "
               f"{dev_f:.4f} ms", flush=True)
-        print(f"phase 20: S={S}: profiler, one eager batch: {prof}",
-              flush=True)
+        print(f"phase 20: S={S}: profiler, one eager batch: {prof}; "
+              f"peak allocation beyond its inputs {peak['pallas']:.3f} MB "
+              f"(impl='fft': {peak['fft']:.3f} MB)", flush=True)
         print(f"phase 20: S={S}: every logit finite and within atol "
               f"{MIMO_ATOL}, rtol {MIMO_RTOL} of the fft run (max |diff| "
               f"{worst:.3g}, max |logit| {scale:.3g}); loss_fn's loss within "
@@ -1780,6 +1832,17 @@ def phase_mimonet(torch, dev, cc, card) -> dict:
           + ", ".join(f"{corr[s][s]:.4f}" for s in range(3))
           + f"; largest other {max(other):.4f}", flush=True)
     return out
+
+
+def peak_beyond_inputs(torch, fn) -> float:
+    """MB that one eager call of ``fn`` allocates at its peak beyond what
+    was allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 1e6
 
 
 def phase_hrr(torch, dev, cc) -> int:
@@ -1813,60 +1876,123 @@ def phase_hrr(torch, dev, cc) -> int:
     return launches[1]
 
 
-def circ_bound(n: int, L: int, itemsize: int = 4) -> tuple:
-    """Least time (ms) of one circular convolution of n rows of L: x and y
-    read once, the output written once, over the memory rate; the FLOP of
-    its cheapest method at the fp32 rate.  That is the FFT route, not the
-    direct 2 L^2 a row: three real FFTs of 2.5 L log2 L each (half the
-    5 L log2 L of a complex radix-2 FFT) and a complex product of
-    L / 2 + 1 bins at 6 FLOP."""
-    nbytes = 3 * n * L * itemsize
-    flops = n * (3 * 2.5 * L * math.log2(L) + 6 * (L // 2 + 1))
+def circ_bound(xs: tuple, ys: tuple, itemsize: int = 4) -> tuple:
+    """Least time (ms) of one circular convolution of x (shape xs) with y
+    (ys), broadcast to one shape of n rows of L: each operand's distinct
+    rows read once, the n output rows written once, over the memory rate;
+    the FLOP of its cheapest method at the fp32 rate.  That is the FFT
+    route, not the direct 2 L^2 a row: a real FFT of 2.5 L log2 L (half the
+    5 L log2 L of a complex radix-2 FFT) for each distinct row of x and y
+    and each output row, and a complex product of L / 2 + 1 bins at 6 FLOP
+    an output row."""
+    L = xs[-1]
+    n = math.prod(torch_broadcast(xs, ys)[:-1])
+    dx, dy = math.prod(xs[:-1]), math.prod(ys[:-1])
+    nbytes = (dx + dy + n) * L * itemsize
+    flops = (dx + dy + n) * 2.5 * L * math.log2(max(L, 2)) + n * 6 * (
+        L // 2 + 1)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
+def torch_broadcast(xs: tuple, ys: tuple) -> tuple:
+    import torch
+    return tuple(torch.broadcast_shapes(xs, ys))
+
+
+def cc_timed_shapes() -> list:
+    """(name, x shape, y shape) that phase 22 times circconv_rows at: the
+    MIMONet path's bind (emb with the keys) and unbind (out with the
+    involuted keys) at S = 2 and 4, in blocked layout, and 4096
+    independent rows of L = 256 (the direct mode)."""
+    N, B, L = MIMO_ITEMS, MIMO_BLOCKS, MIMO_DIM // MIMO_BLOCKS
+    shapes = []
+    for S in MIMO_STREAMS:
+        shapes += [(f"bind S={S}", (N, S, B, L), (1, S, B, L)),
+                   (f"unbind S={S}", (N, 1, B, L), (1, S, B, L))]
+    return shapes + [("independent rows", CC_SERVE[0], CC_SERVE[0])]
+
+
 def phase_circconv_timing(torch, dev, cc, card) -> dict:
-    """circconv_rows at the serving shape (4096 x 256) and circconv_single
-    at L = 2048, fp32: each kernel, its plain version, its bound and the
-    library yardstick (the port's FFT bind: rfft, rfft, multiply, irfft,
-    four calls, since no single PyTorch call computes a circular
-    convolution), device time from CUDA-graph replay, in turns."""
+    """circconv_rows at the path's shapes (cc_timed_shapes) and
+    circconv_single at L = 2048, fp32: each kernel, its plain version, its
+    bound and the library yardstick (the port's FFT bind: rfft, rfft,
+    multiply, irfft, four calls, since no single PyTorch call computes a
+    circular convolution; it transforms the operands before they
+    broadcast), device time from CUDA-graph replay, in turns; at the bind and unbind shapes also ``vsa.bind`` /
+    ``vsa.unbind`` with impl="pallas" against impl="fft" (the unbind's
+    involution included in both); beside the single kernel an empty
+    kernel's time, the card's launch floor.  Raises if a kernel's time is
+    below its bound by more than 5 % (a timing fault).  Returns the
+    kernels' rows for the JSON line (circconv_rows at the S = 2 bind)."""
     from repro_torch.core import vsa
     from repro_torch.kernels.circconv import kernel as k
     from repro_torch.kernels.circconv import ref
 
     gen = torch.Generator().manual_seed(71)
     launches = (cc.rows_launches, cc.single_launches)
+    few = dict(iters=5, replays=3)  # the plain rows version gathers 1-2 GB
+    vcfg = vsa.VSAConfig(MIMO_DIM, MIMO_BLOCKS, impl="pallas")
     out = {}
-    for name, shape, kern_fn, plain_fn in (
-            ("rows", CC_SERVE[0], k.circconv_rows, ref.circconv_rows_ref),
-            ("single", (CC_TIMED_L,), k.circconv_single,
-             ref.circconv_single_ref)):
-        x = torch.randn(shape, generator=gen).to(dev)
-        y = torch.randn(shape, generator=gen).to(dev)
-        kern = lambda: kern_fn(x, y)
-        plain = lambda: plain_fn(x, y)
-        library = lambda: vsa._bind_fft(x, y)
-        few = dict(iters=5, replays=3)  # the plain rows version gathers 1 GB
+
+    def timed(name, xs, ys, kern, plain, library, extra=""):
         p1, k1, k2, p2, l1, l2 = (graph_ms(plain, **few), graph_ms(kern),
                                   graph_ms(kern), graph_ms(plain, **few),
                                   graph_ms(library), graph_ms(library))
-        hk = cuda_ms(kern)
-        n = shape[0] if len(shape) == 2 else 1
-        b_ms, b_by, nbytes, flops = circ_bound(n, shape[-1])
-        out[name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
-                     "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": min(l1, l2)}
-        print(f"phase 22: circconv_{name} at {shape} fp32 on {card}: device "
-              f"time (CUDA graph) kernel {k1:.5f}/{k2:.5f} ms, plain "
-              f"{p1:.5f}/{p2:.5f} ms, library {l1:.5f}/{l2:.5f} ms (the "
-              f"FFT bind: rfft, rfft, multiply, irfft), bound {b_ms:.5f} ms "
-              f"({b_by}: {nbytes / 1e6:.4f} MB; {flops / 1e9:.4f} GFLOP by "
-              f"FFT), "
-              f"kernel at {b_ms / min(k1, k2):.1%} of the bound; per call "
-              f"back to back, host included: kernel {hk:.4f} ms", flush=True)
+        b_ms, b_by, nbytes, flops = circ_bound(xs, ys)
+        ms = min(k1, k2)
+        if b_ms > 1.05 * ms:
+            raise AssertionError(f"{name}: {ms:.5f} ms is below its bound "
+                                 f"{b_ms:.5f} ms: a timing fault")
+        print(f"phase 22: {name} fp32 on {card}: device time (CUDA graph) "
+              f"kernel {k1:.5f}/{k2:.5f} ms, plain {p1:.5f}/{p2:.5f} ms, "
+              f"library {l1:.5f}/{l2:.5f} ms (the FFT bind: rfft, rfft, "
+              f"multiply, irfft), bound {b_ms:.6f} ms ({b_by}: distinct "
+              f"{nbytes / 1e6:.4f} MB; {flops / 1e9:.4f} GFLOP by FFT), "
+              f"kernel at {b_ms / ms:.1%} of the bound{extra}", flush=True)
+        return {"ms": ms, "plain_ms": min(p1, p2), "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": min(l1, l2)}
+
+    for name, xs, ys in cc_timed_shapes():
+        shape = torch_broadcast(xs, ys)
+        L = shape[-1]
+        xb = torch.randn(xs, generator=gen).to(dev)
+        yb = torch.randn(ys, generator=gen).to(dev)
+        x, y = xb.expand(shape), yb.expand(shape)
+        x2, y2 = x.reshape(-1, L).contiguous(), y.reshape(-1, L).contiguous()
+        mode = k.rows_plan(shape, x.stride(), y.stride()).mode
+        extra = ""
+        if not name.startswith("independent"):  # through the vsa entry points
+            S = shape[1]
+            flat = (xb.reshape(MIMO_ITEMS, xs[1], MIMO_DIM),
+                    yb.reshape(1, S, MIMO_DIM))  # emb or out, keys
+            fns = {impl: ((lambda i=impl: vsa.bind(*flat, vcfg, impl=i))
+                          if name.startswith("bind") else
+                          (lambda i=impl: vsa.unbind(*flat, vcfg, impl=i)))
+                   for impl in ("pallas", "fft")}
+            t = {impl: [graph_ms(fn) for _ in range(2)]
+                 for impl, fn in fns.items()}
+            extra = (f"; vsa.{name.split()[0]} impl='pallas' "
+                     f"{t['pallas'][0]:.5f}/{t['pallas'][1]:.5f} ms, "
+                     f"impl='fft' {t['fft'][0]:.5f}/{t['fft'][1]:.5f} ms")
+        out[name] = timed(
+            f"circconv_rows {name} {tuple(shape)} ({mode} mode)", xs, ys,
+            lambda: k.circconv_rows(x, y),
+            lambda: ref.circconv_rows_ref(x2, y2),
+            lambda: vsa._bind_fft(xb, yb), extra)  # broadcasts after rfft
+        if name != "independent rows":
+            out[name]["vsa_ms"] = {i: min(v) for i, v in t.items()}
+    v = torch.randn((CC_TIMED_L,), generator=gen).to(dev)
+    w = torch.randn((CC_TIMED_L,), generator=gen).to(dev)
+    floor = min(graph_ms(lambda: k.empty_launch(dev)) for _ in range(2))
+    _, tiles, csize, _, _ = k.single_geometry(CC_TIMED_L)
+    out["single"] = timed(
+        f"circconv_single ({CC_TIMED_L},), {tiles} clusters of {csize}",
+        (CC_TIMED_L,), (CC_TIMED_L,), lambda: k.circconv_single(v, w),
+        lambda: ref.circconv_single_ref(v, w), lambda: vsa._bind_fft(v, w),
+        f"; an empty kernel (the launch floor) {floor:.5f} ms")
+    out["single"]["floor_ms"] = floor
     cc.rows_launches, cc.single_launches = launches  # not the main path's
     return out
 
@@ -1955,12 +2081,16 @@ def main() -> int:
          "source": "src/repro_torch/kernels/circconv/csrc/circconv.cu",
          "replaces": "src/repro/kernels/circconv/kernel.py:55",
          "launches": mimo["launches"], "max_abs_err": cc_err["rows"],
-         **cc_times["rows"]},
+         "shape": "MIMONet bind, S = 2",
+         **{key: v for key, v in cc_times["bind S=2"].items()
+            if key != "vsa_ms"}},
         {"name": "circconv_single_mxu", "route": "cuda",
          "source": "src/repro_torch/kernels/circconv/csrc/circconv.cu",
          "replaces": "src/repro/kernels/circconv/kernel.py:101",
          "launches": hrr_launches, "max_abs_err": cc_err["single"],
-         **cc_times["single"]},
+         "shape": f"L = {CC_TIMED_L}",
+         **{key: v for key, v in cc_times["single"].items()
+            if key != "floor_ms"}},
     ]
     print("kernels: " + ", ".join(
         f"{kd['name']} ({kd['launches']} launches on its path, max |kernel "

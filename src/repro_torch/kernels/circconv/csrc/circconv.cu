@@ -1,5 +1,4 @@
-// Row-wise circular convolution, written for Hopper (sm_90a), fp32 FMAs on
-// the CUDA cores.
+// Row-wise circular convolution, written for Hopper (sm_90a).
 //
 // Replaces the two TPU kernels of src/repro/kernels/circconv/kernel.py:
 //   circconv_rows        (many independent rows; every block-code bind and
@@ -9,50 +8,112 @@
 //
 //   o[r, n] = sum_k x[r, k] * y[r, (n - k) mod L]        (fp32 sums)
 //
-// with x, y [N, L] fp32 or bf16 and o [N, L] in x's type.
+// with x, y fp32 or bf16 and o in x's type.  The rows kernel reads x and y
+// as strided views over one leading shape (kernel.py::rows_plan collapses it
+// into at most 4 dims, Dims below): a dim where an operand is broadcast has
+// stride 0 and costs neither a copy nor a second read of the same bytes.
 //
-// Bound on the H100 (SXM, 3.35 TB/s, 67 TFLOP/s fp32): at MIMONet's serving
-// shape (N = 4096 rows, L = 256, fp32) one launch reads x and y (8.4 MB) and
-// writes o (4.2 MB): 3.8 us at the memory rate.  The cheapest method, three
-// FFTs and a product, needs 0.066 GFLOP (1.0 us), so the function is bound
-// by its bytes.  This direct kernel does 2 N L^2 = 0.54 GFLOP (8.0 us at the
-// fp32 rate) and so cannot reach that bound; the single-row kernel at
-// L = 2048 (24.6 KB, 8.4 MFLOP direct) is bound by its launch in practice.
+// Bound on the H100 (SXM, 3.35 TB/s; 495 TFLOP/s TF32 on the tensor cores,
+// 67 TFLOP/s fp32 on the FMA units).  MIMONet binds emb [N, S, D] with keys
+// [1, S, D] and unbinds out [N, 1, D] with the same keys: at N = 256, S = 2,
+// B = 8, L = 256 a launch has 4096 rows but only S B = 16 distinct key rows.
+// Its distinct bytes (4.2 MB of emb or 2.1 MB of out, 16 KB of keys, 4.2 MB
+// written) take 2.5 us (bind) and 1.9 us (unbind) at the memory rate.  The
+// direct method does 2 N L^2 = 0.54 GFLOP, 8.0 us at the FMA rate: it cannot
+// reach the bound on the FMA units.  On the tensor cores it can come close.
 //
-// What the design does about its FMAs: like the TPU kernel, it keeps both
-// O(L) operands on chip and never forms the L x L circulant.  A block stages
-// x (zero-padded to Lp, a multiple of 8) and a window of the doubled y in
-// shared memory, converted to fp32.  Each thread owns 8 consecutive outputs
-// n0..n0+7 and walks k in chunks of 8; the 64 products of a chunk need only
-// the 15 values y[n0 - k0 - 7 .. n0 - k0 + 7], and 7 of them carry over to the
-// next chunk, so a chunk costs 64 FMAs, 8 loads of y and 2 16-byte
-// (broadcast) loads of x.  The window is stored de-interleaved by 8 (element
-// w at [w % 8][w / 8]), so the 8 threads of neighbouring output groups read
-// neighbouring words: no bank conflicts.
-//
-// circconv_rows: one thread group per row, Lp / 8 threads (at most 256; a
-// thread walks several output groups beyond that), R rows per block so that a
-// block has about 256 threads; each output sums k in order 0..L-1.
-// circconv_single: the grid splits the outputs into tiles of TN = 64, and a
-// block splits k into KS = 32 slices of 8 threads each; the slices' partial
-// sums are added in slice order through shared memory (no atomics: the same
-// bits from run to run).
-//
-// Shared memory per row: 4 (Lp + Lp + TN + 8) bytes (rows: TN = Lp), up to
-// 227 KB with the opt-in attribute: L <= 16384.  kernel.py's rows_geometry
-// and single_geometry compute the bytes and pass them in; kernel.py::MAX_L
-// checks the limit.
+// Tensor-core mode (circconv_rows_mma_kernel).  Rows that share one row of
+// the stationary operand (y; kernel.py swaps x and y where x is the shared
+// one) form a product O_g = X_g C_g with the circulant C_g[k][n] =
+// y_g[(n - k) mod L].  The circulant is never formed.  A block is one
+// warpgroup on 64 rows x 128 outputs and issues wgmma.m64n128k8 (TF32): A
+// from registers (the rows, streamed through a cp.async ring of 3 k-stages
+// of 64, so loads overlap the products), B from shared memory through a
+// descriptor.  B of k-step t is B[n][k] = y_g[(n0 + n - 8 t - k) mod L]:
+// it depends on n - 8 t only, so every step's tile is one Toeplitz strip
+// S[r][k] = y_g[(n0 + r - k) mod L] read from row -8 t on.  The block
+// builds the strip once (L / 8 + 15 groups of 8 rows, K-major core matrices
+// without swizzle) and moves the descriptor's start address by one 8-row
+// group a step: 8 (L + 120) values a strip in place of L^2.  At MIMONet's
+// shapes that is 16 groups x 4 x 2 = 128 blocks for 132 SMs (S = 2) and 256
+// (S = 4); a wider tile would leave SMs idle at S = 2, a narrower one reload
+// each row for more output tiles.  The strips bound L to 2048 (196 KB).
+// fp32 accuracy: one TF32 product keeps ~3 digits, below the MIMONet logit
+// contract.  So each fp32 value splits into big = tf32(a) and small =
+// tf32(a - big) (round to nearest; the tensor cores would truncate), the
+// strip is kept twice (big and small parts) and each k-step issues
+// small.big, big.small, then big.big (3xTF32; the dropped small.small is
+// 2^-22 relative).  bf16 values are exact in TF32: one product, no split.
+// 3 x 0.54 GFLOP take 3.3 us at the 495 TFLOP/s TF32 rate, so at S = 2 the
+// mode is bound by its operations, near its bytes (2.5 us); mma.sync,
+// which this design replaced, reached ~9 cycles an m16n8k8 a scheduler,
+// about half that rate.
 
+// Direct mode (circconv_rows_kernel): every row its own pair, so nothing to
+// share.  Like the TPU kernel it keeps both O(L) operands on chip.  A block
+// stages x (zero-padded to Lp, a multiple of 8) and a window of the doubled
+// y in shared memory, in fp32.  Each thread owns 8 consecutive outputs and
+// walks k in chunks of 8; the 64 products of a chunk need the 15 values
+// y[n0 - k0 - 7 .. n0 - k0 + 7], 7 of which carry over to the next chunk.
+// The window is stored de-interleaved by 8 (element w at [w % 8][w / 8]), so
+// neighbouring output groups read neighbouring words.  One thread group per
+// row (Lp / 8 threads, at most 256), R rows per block.
+//
+// Single-row kernel (circconv_single_kernel): one row has too little work
+// for one block's loads to hide.  The outputs split into tiles of 64, each
+// tile one cluster of C <= 8 blocks that split k (kernel.py::single_geometry:
+// about 128 blocks, 4 at L = 2048), so a block stages only its slice of x
+// and the window that slice needs.  Its 8 warps are the tile's 8 groups of 8
+// outputs and its 32 lanes slices of k; a warp sums its lanes by a shuffle
+// reduce-scatter, each sum goes to the rank that owns its output over
+// DSMEM, and the owner adds its ranks' sums in rank order.
+//
+// Sums run in a fixed order, with no atomics: the same bits from run to run.
+// kernel.py's geometry functions size every launch's shared memory.
+
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kChunk = 8;        // outputs per thread, and k per step
-constexpr int kRowsThreads = 256;  // most threads per rows block
-constexpr int kTile = 64;        // single: outputs per block
-constexpr int kSlices = 32;      // single: k slices per block
+constexpr int kChunk = 8;          // direct: outputs per thread, k per step
+constexpr int kRowsThreads = 256;  // direct: most threads per block
+constexpr int kMaxDims = 4;        // leading dims of a rows launch
+constexpr int kMmaRows = 64;       // mma: rows of a block
+constexpr int kMmaCols = 128;      // mma: outputs of a block
+constexpr int kMmaK = 64;          // mma: k of a ring stage (8 k-steps)
+constexpr int kMmaStages = 3;      // mma: ring depth
+constexpr int kMmaThreads = 128;   // mma: one warpgroup, 16 rows a warp
+constexpr int kTile = 64;          // single: outputs per cluster
+constexpr int kSingleThreads = 256;  // single: 8 warps = 8 output groups
+
+// Leading dims of a rows launch, outermost first: row r's digits over n[]
+// give its offsets in x, y and o (elements).
+struct Dims {
+  int n[kMaxDims];
+  long long sx[kMaxDims], sy[kMaxDims], so[kMaxDims];
+};
+
+struct Offsets {
+  long long x, y, o;
+};
+
+__device__ __forceinline__ Offsets offsets(const Dims& d, int r) {
+  Offsets off = {0, 0, 0};
+#pragma unroll
+  for (int i = kMaxDims - 1; i >= 0; --i) {
+    const int q = r / d.n[i], digit = r - q * d.n[i];
+    off.x += digit * d.sx[i];
+    off.y += digit * d.sy[i];
+    off.o += digit * d.so[i];
+    r = q;
+  }
+  return off;
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -67,22 +128,56 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// Stages x (zero-padded to Lp) and the y window of one output tile.  The
-// window holds yd[w] = y[(eb + w) mod L] for w in [0, W), eb = n0 + L - Lp - 7,
+// ---- direct mode and the single-row kernel: FMAs over a staged window ----
+
+// Stages x[0 .. xn) zero-padded to Lp values and the y window of one output
+// tile: yd[w] = y[(eb + w) mod L] for w in [0, W), eb = n0 + L - Lp - 7,
 // W = TN + Lp + 8, de-interleaved by 8 into ys[(w % 8) * (W / 8) + w / 8].
+// A k-slice starting at k = kb stages with x + kb, xn = L - kb, Lp = its
+// length and n0 - kb in place of n0.
 template <typename T>
 __device__ __forceinline__ void stage(const T* __restrict__ x,
                                       const T* __restrict__ y, float* xs,
-                                      float* ys, int L, int Lp, int n0, int TN,
-                                      int tid, int nthreads) {
+                                      float* ys, int L, int xn, int Lp, int n0,
+                                      int TN, int tid, int nthreads) {
   for (int k = tid; k < Lp; k += nthreads)
-    xs[k] = k < L ? to_f32(x[k]) : 0.f;
+    xs[k] = k < xn ? to_f32(x[k]) : 0.f;
   const int W = TN + Lp + kChunk, P = W / kChunk;
   const int eb = n0 + L - Lp - 7;
   for (int w = tid; w < W; w += nthreads) {
     int e = (eb + w) % L;
     if (e < 0) e += L;
     ys[(w & 7) * P + (w >> 3)] = to_f32(y[e]);
+  }
+}
+
+// stage() with its loads issued in batches of 4 x and 4 y a thread before
+// their stores: the single kernel's slice is a few loads a thread, and one
+// round trip to L2 is most of its staging.
+template <typename T>
+__device__ __forceinline__ void stage_batched(const T* __restrict__ x,
+                                              const T* __restrict__ y,
+                                              float* xs, float* ys, int L,
+                                              int xn, int Lp, int n0, int TN,
+                                              int tid, int nthreads) {
+  const int W = TN + Lp + kChunk, P = W / kChunk;  // W > Lp
+  const int eb = n0 + L - Lp - 7;
+  for (int b = tid; b < W; b += 4 * nthreads) {
+    float xv[4], yv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int w = b + i * nthreads;
+      xv[i] = w < Lp && w < xn ? to_f32(x[w]) : 0.f;
+      int e = (eb + w) % L;
+      if (e < 0) e += L;
+      yv[i] = w < W ? to_f32(y[e]) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int w = b + i * nthreads;
+      if (w < Lp) xs[w] = xv[i];
+      if (w < W) ys[(w & 7) * P + (w >> 3)] = yv[i];
+    }
   }
 }
 
@@ -121,6 +216,31 @@ __device__ __forceinline__ void accumulate(const float* xs, const float* ys,
   }
 }
 
+// Reduce-scatter of P sums across a warp, in a fixed order: afterwards
+// v[0] of lane l holds the warp's total of sum (l mod P).  Offset O halves
+// the sums a lane keeps once P == 2 * O; before that every lane adds all P
+// of its partner's.
+template <int N, int P, int O>
+__device__ __forceinline__ void reduce_scatter(float (&v)[N], int lane) {
+  if constexpr (O >= 1) {
+    if constexpr (P == 2 * O) {
+      const bool hi = (lane & O) != 0;
+#pragma unroll
+      for (int i = 0; i < O; ++i) {
+        const float keep = hi ? v[i + O] : v[i];
+        const float send = hi ? v[i] : v[i + O];
+        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+      }
+      reduce_scatter<N, O, O / 2>(v, lane);
+    } else {
+#pragma unroll
+      for (int i = 0; i < P; ++i)
+        v[i] += __shfl_xor_sync(0xffffffffu, v[i], O);
+      reduce_scatter<N, P, O / 2>(v, lane);
+    }
+  }
+}
+
 template <typename T>
 __device__ __forceinline__ void store(T* __restrict__ o, int n, int L,
                                       const float acc[kChunk]) {
@@ -134,16 +254,18 @@ __device__ __forceinline__ void store(T* __restrict__ o, int n, int L,
 template <typename T>
 __global__ void __launch_bounds__(kRowsThreads)
 circconv_rows_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                     T* __restrict__ o, int N, int L, int Lp, int R, int tpr) {
+                     T* __restrict__ o, const Dims d, int N, int L, int Lp,
+                     int R, int tpr) {
   extern __shared__ __align__(16) float smem[];
   const int r = threadIdx.x / tpr, t = threadIdx.x - r * tpr;
   const int row = blockIdx.x * R + r;
   const int per_row = Lp + 2 * Lp + kChunk;
   float* xs = smem + r * per_row;
   float* ys = xs + Lp;
+  Offsets off = {0, 0, 0};
   if (row < N) {
-    const size_t off = (size_t)row * L;
-    stage(x + off, y + off, xs, ys, L, Lp, 0, Lp, t, tpr);
+    off = offsets(d, row);
+    stage(x + off.x, y + off.y, xs, ys, L, L, Lp, 0, Lp, t, tpr);
   }
   __syncthreads();
   if (row >= N) return;
@@ -151,41 +273,305 @@ circconv_rows_kernel(const T* __restrict__ x, const T* __restrict__ y,
   for (int g = t; g < Lp / kChunk; g += tpr) {
     float acc[kChunk] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     accumulate(xs, ys, P, Lp, g, 0, Lp, acc);
-    store(o + (size_t)row * L, g * kChunk, L, acc);
+    store(o + off.o, g * kChunk, L, acc);
   }
 }
 
-// Grid (ceil(Lp / kTile)); block kSlices * (kTile / 8) threads.  Slice s sums its
-// share of k for the tile's 64 outputs; the slices' partials meet in red.
+// Grid (tiles * C) in clusters of C blocks; cluster t owns outputs
+// [64 t, 64 t + 64), its rank the k-slice [rank ks, rank ks + ks) of [0, Lp).
+// Output i belongs to rank i % C, which receives every rank's partial sum of
+// it in inbox[rank][i] and adds them in rank order.
+// Shared memory: [ks] x slice, [64 + ks + 8] window, [C][64] inbox.
 template <typename T>
-__global__ void __launch_bounds__(kSlices * kTile / kChunk)
+__global__ void __launch_bounds__(kSingleThreads)
 circconv_single_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                       T* __restrict__ o, int L, int Lp) {
+                       T* __restrict__ o, int L, int Lp, int ks) {
   extern __shared__ __align__(16) float smem[];
-  constexpr int tpt = kTile / kChunk;  // threads per slice
+  cg::cluster_group cluster = cg::this_cluster();
+  // Arrive now, wait before the first remote store: every peer has started.
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::);
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int n0 = (blockIdx.x / C) * kTile;
+  const int kb = min(rank * ks, Lp), Ls = min(ks, Lp - kb);
   float* xs = smem;
-  float* ys = xs + Lp;
-  const int W = kTile + Lp + kChunk;
-  float* red = ys + W;  // [kSlices][kTile]
-  const int n0 = blockIdx.x * kTile;
-  const int s = threadIdx.x / tpt, g = threadIdx.x - s * tpt;
-  stage(x, y, xs, ys, L, Lp, n0, kTile, threadIdx.x, blockDim.x);
+  float* ys = xs + ks;
+  float* inbox = ys + kTile + ks + kChunk;
+  stage_batched(x + kb, y, xs, ys, L, L - kb, Ls, n0 - kb, kTile,
+                threadIdx.x, kSingleThreads);
   __syncthreads();
-  const int chunks = Lp / kChunk;
-  const int per = (chunks + kSlices - 1) / kSlices;
-  const int kbeg = min(s * per, chunks) * kChunk;
-  const int kend = min((s + 1) * per, chunks) * kChunk;
+  const int g = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int chunks = Ls / kChunk, per = (chunks + 31) / 32;
+  const int cb = min(lane * per, chunks), ce = min(cb + per, chunks);
   float acc[kChunk] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  accumulate(xs, ys, W / kChunk, Lp, g, kbeg, kend, acc);
-#pragma unroll
-  for (int j = 0; j < kChunk; ++j) red[s * kTile + g * kChunk + j] = acc[j];
-  __syncthreads();
-  for (int n = threadIdx.x; n < kTile; n += blockDim.x) {
-    float v = 0.f;
-    for (int i = 0; i < kSlices; ++i) v += red[i * kTile + n];
-    if (n0 + n < L) o[n0 + n] = from_f32<T>(v);
+  accumulate(xs, ys, (kTile + Ls + kChunk) / kChunk, Ls, g, cb * kChunk,
+             ce * kChunk, acc);
+  reduce_scatter<kChunk, kChunk, 16>(acc, lane);
+  asm volatile("barrier.cluster.wait.aligned;\n" ::);
+  if (lane < kChunk) {  // lane j sends output 8 g + j to its owner
+    const int i = g * kChunk + lane;
+    cluster.map_shared_rank(inbox, i % C)[rank * kTile + i] = acc[0];
+  }
+  cluster.sync();  // every partial sum has reached its owner
+  const int i = threadIdx.x;
+  if (i < kTile && i % C == rank) {
+    float a = inbox[i];
+    for (int k = 1; k < C; ++k) a += inbox[k * kTile + i];
+    if (n0 + i < L) o[n0 + i] = from_f32<T>(a);
   }
 }
+
+// ---- tensor-core mode --------------------------------------------------------
+
+__device__ __forceinline__ uint32_t tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// Shared-memory matrix descriptor of a K-major tile without swizzle: core
+// matrices of 8 rows x 16 bytes, the two k-halves 128 bytes apart (LBO),
+// 8-row groups 256 bytes apart (SBO).
+__device__ __forceinline__ uint64_t smem_desc(const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return (uint64_t)((a >> 4) & 0x3FFF) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(256 >> 4) << 32);
+}
+
+// d[64] += a[64 x 8] b[8 x 128] for the warpgroup: a from registers (the
+// m16n8k8 A fragment of the warp's 16 rows), b through its descriptor (TF32
+// inputs, fp32 sums; d as the m16n8 C fragments of 16 n-tiles).
+__device__ __forceinline__ void wgmma(float (&d)[64], const uint32_t (&a)[4],
+                                      uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
+}
+
+// 16 bytes global -> shared; a row past the group's end reads nothing and
+// leaves zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Grid (groups x ceil(group_rows / 64) x L / 128), output tile fastest, so
+// the blocks that read the same rows run together.  Block: one warpgroup;
+// rows [m0, m0 + 64) of group g (flat rows g * group_rows + m), outputs
+// [n0, n0 + 128); warp w owns rows m0 + 16 w .. + 15.
+// Shared memory: the ring [3][64][kPitch] of T, the window [L + 128] fp32
+// and the strips [L / 8 + 15][2][8][4] fp32 (fp32 inputs: each twice, TF32
+// high parts, then low parts), the rows' offsets in x and in o [2][64].
+template <typename T>
+__global__ void __launch_bounds__(kMmaThreads)
+circconv_rows_mma_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                         T* __restrict__ o, const Dims d, int group_rows,
+                         int L) {
+  constexpr bool kSplit = sizeof(T) == 4;  // bf16 is exact in TF32
+  constexpr int kVec = 16 / (int)sizeof(T);  // T per 16-byte copy
+  constexpr int kPitch = kMmaK + kVec;  // row pitch: fragments hit 32 banks
+  constexpr int kStage = kMmaRows * kPitch;
+  constexpr int kVecsPerRow = kMmaK / kVec;
+  constexpr int kCopies = kMmaRows * kVecsPerRow / kMmaThreads;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int steps = L / 8, groups8 = steps + 15;  // k-steps; strip groups
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  float* win = reinterpret_cast<float*>(ring + kMmaStages * kStage);
+  float* wlo = win + L + kMmaCols;
+  float* sbig = wlo + (kSplit ? L + kMmaCols : 0);
+  float* ssmall = sbig + groups8 * 64;
+  long long* xoff = reinterpret_cast<long long*>(
+      sbig + (kSplit ? 2 : 1) * groups8 * 64);
+  long long* ooff = xoff + kMmaRows;
+
+  const int tid = threadIdx.x;
+  const int ntiles = L / kMmaCols, mtiles = (group_rows + kMmaRows - 1) / kMmaRows;
+  const int nt = blockIdx.x % ntiles, rest = blockIdx.x / ntiles;
+  const int mt = rest % mtiles, g = rest / mtiles;
+  const int n0 = nt * kMmaCols, m0 = mt * kMmaRows;
+  const int row0 = g * group_rows;
+  const int mrows = min(kMmaRows, group_rows - m0);  // rows of this block
+
+  // The block's row offsets in x and o, once: a row's offsets divide by the
+  // dims' sizes.
+  if (tid < kMmaRows) {
+    const Offsets off = offsets(d, row0 + m0 + min(tid, mrows - 1));
+    xoff[tid] = off.x;
+    ooff[tid] = off.o;
+  }
+  __syncthreads();
+
+  // The rows this thread copies: c = tid + i * 128 -> row c / kVecsPerRow.
+  const T* src[kCopies];
+  const int vcol = (tid % kVecsPerRow) * kVec;
+#pragma unroll
+  for (int i = 0; i < kCopies; ++i)
+    src[i] = x + xoff[(tid + i * kMmaThreads) / kVecsPerRow] + vcol;
+  auto load = [&](int slot, int k0) {
+    T* st = ring + slot * kStage;
+#pragma unroll
+    for (int i = 0; i < kCopies; ++i) {
+      const int m = (tid + i * kMmaThreads) / kVecsPerRow;
+      cp_async16(st + m * kPitch + vcol, src[i] + k0, m < mrows);
+    }
+  };
+  const int nk = L / kMmaK;
+  load(0, 0);  // stage 0 first, alone: the loop starts when it is in
+  cp_async_commit();
+
+  // The stationary window win[u] = y_g[(n0 + u) mod L], in flight with
+  // stage 0; fp32 inputs keep its TF32 high parts in win and its low parts
+  // in wlo.
+  const T* yg = y + offsets(d, row0).y;
+  for (int b = tid; b < L + kMmaCols; b += 4 * kMmaThreads) {
+    float v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int u = b + i * kMmaThreads;
+      int e = n0 + u;
+      if (e >= L) e -= L;
+      v[i] = u < L + kMmaCols ? to_f32(yg[e]) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int u = b + i * kMmaThreads;
+      if (u >= L + kMmaCols) break;
+      if constexpr (kSplit) {
+        const float hi = __uint_as_float(tf32(v[i]));
+        win[u] = hi;
+        wlo[u] = __uint_as_float(tf32(v[i] - hi));
+      } else {
+        win[u] = v[i];
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int s = 1; s < kMmaStages; ++s) {  // in flight with the strips
+    if (s < nk) load(s, s * kMmaK);
+    cp_async_commit();
+  }
+
+  // The strips: B of k-step t is the K-major tile B[n][k] = win[L + n - 8 t
+  // - k], n < 128, k < 8, so every step's tile is the strip S[r][k] =
+  // win[L + r - k] from row r = -8 t on.  Group G of the strip holds rows
+  // 8 (G - steps + 1) .. + 7; step t's descriptor starts at group steps - 1
+  // - t.  A thread writes one 16-byte row of a core matrix (4 k) at a time.
+  for (int f = tid; f < groups8 * 16; f += kMmaThreads) {
+    const int G = f >> 4, h = (f >> 3) & 1, i = f & 7;
+    const int u = L + 8 * (G - steps + 1) + i - 4 * h;
+    *reinterpret_cast<float4*>(sbig + 4 * f) =
+        make_float4(win[u], win[u - 1], win[u - 2], win[u - 3]);
+    if constexpr (kSplit)
+      *reinterpret_cast<float4*>(ssmall + 4 * f) =
+          make_float4(wlo[u], wlo[u - 1], wlo[u - 2], wlo[u - 3]);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  cp_async_wait<kMmaStages - 1>();
+  __syncthreads();  // the strips and stage 0 are in
+
+  const int warp = tid >> 5, lane = tid & 31, q = lane >> 2, r4 = lane & 3;
+  const uint64_t dbig = smem_desc(sbig), dsmall = smem_desc(ssmall);
+  // A fragment of the warp's rows at local k-step s of a stage: rows 16 w +
+  // q (+ 8), columns 8 s + r4 (+ 4).  Read a step ahead, into an.
+  float an[4];
+  auto read_a = [&](const T* st, int s) {
+    const T* p = st + (16 * warp + q) * kPitch + 8 * s + r4;
+    an[0] = to_f32(p[0]);
+    an[1] = to_f32(p[8 * kPitch]);
+    an[2] = to_f32(p[4]);
+    an[3] = to_f32(p[8 * kPitch + 4]);
+  };
+  read_a(ring, 0);
+  float acc[64];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+
+  for (int ks = 0; ks < nk; ++ks) {
+    const T* st = ring + (ks % kMmaStages) * kStage;
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      // A step's A registers are read by its wgmma group until the wait one
+      // step later retires it (ptxas keeps them intact until then).
+      uint32_t ab[4], as[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if constexpr (kSplit) {
+          ab[e] = tf32(an[e]);
+          as[e] = tf32(an[e] - __uint_as_float(ab[e]));
+        } else {
+          ab[e] = __float_as_uint(an[e]);
+        }
+      }
+      if (s < 7) {
+        read_a(st, s + 1);
+      } else if (ks + 1 < nk) {
+        // Every warp holds this stage's last A: its slot takes stage ks + 3
+        // once stage ks + 1 is in.
+        cp_async_wait<kMmaStages - 2>();
+        __syncthreads();
+        if (ks + kMmaStages < nk) load(ks % kMmaStages, (ks + kMmaStages) * kMmaK);
+        cp_async_commit();
+        read_a(ring + ((ks + 1) % kMmaStages) * kStage, 0);
+      }
+      const uint64_t shift = (uint64_t)((steps - 1 - (ks * 8 + s)) * 256 >> 4);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      if constexpr (kSplit) {
+        wgmma(acc, as, dbig + shift);
+        wgmma(acc, ab, dsmall + shift);
+      }
+      wgmma(acc, ab, dbig + shift);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    }
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+
+  // C fragment: rows q and q + 8 of the warp's 16, outputs 8 j + 2 r4 (+ 1).
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = 16 * warp + 8 * h + q;
+    if (m >= mrows) continue;
+    T* dst = o + ooff[m] + n0 + 2 * r4;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if constexpr (kSplit) {
+        *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(v0, v1);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+            __floats2bfloat162_rn(v0, v1);
+      }
+    }
+  }
+}
+
+// The card's launch floor: timing sets this empty kernel beside the single
+// kernel, whose time is mostly its launch.
+__global__ void empty_kernel() {}
+
+// ---- launches ----------------------------------------------------------------
 
 template <typename Kernel>
 int set_smem(Kernel kernel, int smem) {
@@ -194,26 +580,62 @@ int set_smem(Kernel kernel, int smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
+Dims make_dims(const long long* a) {
+  Dims d;
+  for (int i = 0; i < kMaxDims; ++i) {
+    d.n[i] = (int)a[4 * i];
+    d.sx[i] = a[4 * i + 1];
+    d.sy[i] = a[4 * i + 2];
+    d.so[i] = a[4 * i + 3];
+  }
+  return d;
+}
+
 template <typename T>
-int rows(const void* x, const void* y, void* o, int N, int L, int Lp, int R,
-         int tpr, int smem, cudaStream_t stream) {
+int rows(const void* x, const void* y, void* o, const Dims& d, int N, int L,
+         int Lp, int R, int tpr, int smem, cudaStream_t stream) {
   int rc = set_smem(circconv_rows_kernel<T>, smem);
   if (rc) return rc;
   circconv_rows_kernel<T><<<(N + R - 1) / R, R * tpr, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(y), static_cast<T*>(o),
-      N, L, Lp, R, tpr);
+      d, N, L, Lp, R, tpr);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int single(const void* x, const void* y, void* o, int L, int Lp, int smem,
-           cudaStream_t stream) {
+int rows_mma(const void* x, const void* y, void* o, const Dims& d, int groups,
+             int group_rows, int L, int smem, cudaStream_t stream) {
+  int rc = set_smem(circconv_rows_mma_kernel<T>, smem);
+  if (rc) return rc;
+  const int blocks =
+      groups * ((group_rows + kMmaRows - 1) / kMmaRows) * (L / kMmaCols);
+  circconv_rows_mma_kernel<T><<<blocks, kMmaThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(y), static_cast<T*>(o),
+      d, group_rows, L);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int single(const void* x, const void* y, void* o, int L, int Lp, int tiles,
+           int csize, int ks, int smem, cudaStream_t stream) {
   int rc = set_smem(circconv_single_kernel<T>, smem);
   if (rc) return rc;
-  circconv_single_kernel<T><<<Lp / kTile + (Lp % kTile != 0),
-                              kSlices * kTile / kChunk, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(y), static_cast<T*>(o),
-      L, Lp);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * csize);
+  cfg.blockDim = dim3(kSingleThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = csize;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, circconv_single_kernel<T>, static_cast<const T*>(x),
+      static_cast<const T*>(y), static_cast<T*>(o), L, Lp, ks);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -221,29 +643,58 @@ int single(const void* x, const void* y, void* o, int L, int Lp, int smem,
 
 extern "C" {
 
-// Launches one circconv_rows on `stream`: x, y, o [N, L] contiguous, dtype 0
-// (fp32) or 1 (bf16); Lp = L rounded up to 8; R rows of tpr = min(Lp / 8,
-// 256) threads per block and smem bytes of shared memory, all from
-// kernel.py::rows_geometry.  Returns cudaGetLastError() after the launch (0
-// on success), or cudaErrorInvalidValue for a dtype the kernel lacks.
-int circconv_rows_launch(const void* x, const void* y, void* o, int N, int L,
-                         int Lp, int R, int tpr, int smem, int dtype,
-                         void* stream) {
+// Launches one direct-mode circconv_rows on `stream`: x, y strided views
+// whose leading dims are dims[4][4] (size, x stride, y stride, o stride, in
+// elements, outermost first), unit stride in L; o [N, L] as those dims say;
+// dtype 0 (fp32) or 1 (bf16); Lp = L rounded up to 8; R rows of tpr threads
+// per block and smem bytes, all from kernel.py::rows_geometry.  Returns
+// cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for a dtype the kernel lacks.
+int circconv_rows_launch(const void* x, const void* y, void* o,
+                         const long long* dims, int N, int L, int Lp, int R,
+                         int tpr, int smem, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return rows<float>(x, y, o, N, L, Lp, R, tpr, smem, s);
+  const Dims d = make_dims(dims);
+  if (dtype == 0) return rows<float>(x, y, o, d, N, L, Lp, R, tpr, smem, s);
   if (dtype == 1)
-    return rows<__nv_bfloat16>(x, y, o, N, L, Lp, R, tpr, smem, s);
+    return rows<__nv_bfloat16>(x, y, o, d, N, L, Lp, R, tpr, smem, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Launches one tensor-core circconv_rows on `stream`: dims as above with
+// the group dims outermost, y the stationary operand (stride 0 over the
+// inner group_rows rows), L a multiple of 128 up to 2048, every row 16-byte
+// aligned; smem from kernel.py::mma_geometry.
+int circconv_rows_mma_launch(const void* x, const void* y, void* o,
+                             const long long* dims, int groups, int group_rows,
+                             int L, int smem, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Dims d = make_dims(dims);
+  if (dtype == 0)
+    return rows_mma<float>(x, y, o, d, groups, group_rows, L, smem, s);
+  if (dtype == 1)
+    return rows_mma<__nv_bfloat16>(x, y, o, d, groups, group_rows, L, smem,
+                                   s);
   return (int)cudaErrorInvalidValue;
 }
 
 // Launches one circconv_single on `stream`: x, y, o [L] contiguous, dtype as
-// above, Lp = L rounded up to 8, smem from kernel.py::single_geometry.
+// above; Lp, tiles, csize, ks and smem from kernel.py::single_geometry.
 int circconv_single_launch(const void* x, const void* y, void* o, int L,
-                           int Lp, int smem, int dtype, void* stream) {
+                           int Lp, int tiles, int csize, int ks, int smem,
+                           int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return single<float>(x, y, o, L, Lp, smem, s);
-  if (dtype == 1) return single<__nv_bfloat16>(x, y, o, L, Lp, smem, s);
+  if (dtype == 0)
+    return single<float>(x, y, o, L, Lp, tiles, csize, ks, smem, s);
+  if (dtype == 1)
+    return single<__nv_bfloat16>(x, y, o, L, Lp, tiles, csize, ks, smem, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Launches one empty kernel (a block of 32 threads) on `stream`.
+int circconv_empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
 }
 
 const char* circconv_error_string(int code) {

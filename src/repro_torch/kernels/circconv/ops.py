@@ -13,6 +13,8 @@ went through them.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.kernels.circconv import kernel as _k
@@ -34,22 +36,27 @@ def block_circconv(xb: torch.Tensor, yb: torch.Tensor) -> torch.Tensor:
     Both operands broadcast to their common leading shape (the reference
     broadcasts only ``yb`` to ``xb``'s shape); the result has that shape and
     ``xb``'s dtype, summed in fp32.  Operands of two dtypes are both taken
-    to float32 first.
+    to float32 first.  The rows kernel reads the broadcast operands as
+    views (stride 0 where broadcast); they are copied only where their
+    strides do not collapse into the kernel's dims or L is not unit-stride.
     """
     shape = torch.broadcast_shapes(xb.shape, yb.shape)
     L = shape[-1]
     dtype = xb.dtype
     if xb.dtype != yb.dtype:
         xb, yb = xb.float(), yb.float()
-    x2 = xb.expand(shape).reshape(-1, L).contiguous()
-    y2 = yb.expand(shape).reshape(-1, L).contiguous()
-    on_cpu = x2.device.type == "cpu"
-    if uses_single(x2.shape[0], L):
+    x, y = xb.expand(shape), yb.expand(shape)
+    on_cpu = x.device.type == "cpu"
+    if uses_single(math.prod(shape[:-1]), L):
         single = _ref.circconv_single_ref if on_cpu else _k.circconv_single
-        out = single(x2[0], y2[0])[None]
+        out = single(x.reshape(L).contiguous(), y.reshape(L).contiguous())
+    elif on_cpu:
+        out = _ref.circconv_rows_ref(x.reshape(-1, L).contiguous(),
+                                     y.reshape(-1, L).contiguous())
     else:
-        rows = _ref.circconv_rows_ref if on_cpu else _k.circconv_rows
-        out = rows(x2, y2)
+        if _k.rows_plan(shape, x.stride(), y.stride()) is None:
+            x, y = x.contiguous(), y.contiguous()
+        out = _k.circconv_rows(x, y)
     return out.to(dtype).reshape(shape)
 
 

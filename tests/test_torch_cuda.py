@@ -646,8 +646,14 @@ def test_circconv_rows_kernel_matches_plain_version(cuda, n, L, dtype):
                                atol=tol * np.sqrt(L), rtol=tol)
 
 
+# The single kernel's lengths: the reference test's, edges of L, and one L
+# at each cluster size 8..1 (kernel.single_geometry: about 128 blocks).
+CC_SINGLE = [512, 1024, 777, 2048, 1, 100, 16384, 7, 13, 1300, 1500, 1800,
+             3000, 4096, 8192]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("L", [512, 1024, 777, 2048, 1, 100, 16384])
+@pytest.mark.parametrize("L", CC_SINGLE)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_circconv_single_kernel_matches_plain_version(cuda, L, dtype):
     from repro_torch.kernels.circconv import kernel as cck
@@ -665,6 +671,96 @@ def test_circconv_single_kernel_matches_plain_version(cuda, L, dtype):
     tol = (1e-3, 1e-4) if dtype == torch.float32 else (0.15 * np.sqrt(L), 0.15)
     np.testing.assert_allclose(got.float().cpu().numpy(), want.cpu().numpy(),
                                atol=tol[0], rtol=tol[1])
+
+
+# Broadcast operands, read as views (stride 0) by circconv_rows: (x shape,
+# y shape, mode).  MIMONet's bind (emb [N, S, B, L] with keys [1, S, B, L])
+# and unbind (out [N, 1, B, L] with the involuted keys) at S = 2 and 4, x
+# the stationary operand, both and neither broadcast, a group just below
+# and at the mode rule's threshold (32 rows), and the reference test's
+# shapes against one shared y row.
+CC_BCAST = {
+    "bind S=2": ((256, 2, 8, 256), (1, 2, 8, 256), "mma"),
+    "unbind S=2": ((256, 1, 8, 256), (1, 2, 8, 256), "mma"),
+    "bind S=4": ((256, 4, 8, 256), (1, 4, 8, 256), "mma"),
+    "unbind S=4": ((256, 1, 8, 256), (1, 4, 8, 256), "mma"),
+    "x stationary": ((1, 3, 128), (40, 3, 128), "mma"),
+    "both": ((3, 1, 2, 64), (1, 4, 2, 64), "direct"),
+    "both at L=256": ((64, 1, 8, 256), (1, 2, 8, 256), "mma"),
+    "neither": ((40, 2, 256), (40, 2, 256), "direct"),
+    "group of 31": ((31, 2, 128), (1, 2, 128), "direct"),
+    "group of 32": ((32, 2, 128), (1, 2, 128), "mma"),
+    "group of 33": ((33, 2, 128), (1, 2, 128), "mma"),
+    "the longest mma L": ((64, 2048), (1, 2048), "mma"),
+    "past the longest mma L": ((64, 4096), (1, 4096), "direct"),
+    **{f"y shared, ({n}, {L})": ((n, L), (1, L), mode)
+       for (n, L), mode in (((1, 64), "direct"), ((4, 128), "direct"),
+                            ((32, 256), "mma"), ((7, 100), "direct"),
+                            ((130, 64), "direct"), ((16, 1024), "direct"))},
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CC_BCAST))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_circconv_rows_kernel_on_broadcast_operands(cuda, case, dtype):
+    from repro_torch.kernels.circconv import kernel as cck
+    from repro_torch.kernels.circconv import ref as ccr
+
+    xshape, yshape, mode = CC_BCAST[case]
+    shape = torch.broadcast_shapes(xshape, yshape)
+    L = shape[-1]
+    gen = torch.Generator().manual_seed(sum(shape))
+    x = torch.randn(xshape, generator=gen).to(cuda, dtype).expand(shape)
+    y = torch.randn(yshape, generator=gen).to(cuda, dtype).expand(shape)
+    assert cck.rows_plan(shape, x.stride(), y.stride()).mode == mode
+    got = cck.circconv_rows(x, y)
+    want = ccr.circconv_rows_ref(x.reshape(-1, L).contiguous(),
+                                 y.reshape(-1, L).contiguous())
+    torch.cuda.synchronize()
+    assert got.shape == shape and got.dtype == dtype and got.is_contiguous()
+    tol = 1e-4 if dtype == torch.float32 else 0.15
+    np.testing.assert_allclose(got.float().reshape(-1, L).cpu().numpy(),
+                               want.cpu().numpy(), atol=tol * np.sqrt(L),
+                               rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["bind S=2", "unbind S=2", "neither"])
+def test_circconv_kernels_are_bitwise_repeatable(cuda, case):
+    from repro_torch.kernels.circconv import kernel as cck
+
+    xshape, yshape, _ = CC_BCAST[case]
+    shape = torch.broadcast_shapes(xshape, yshape)
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn(xshape, generator=gen).to(cuda).expand(shape)
+    y = torch.randn(yshape, generator=gen).to(cuda).expand(shape)
+    assert torch.equal(cck.circconv_rows(x, y), cck.circconv_rows(x, y))
+    v = torch.randn((2048,), generator=gen).to(cuda)
+    w = torch.randn((2048,), generator=gen).to(cuda)
+    assert torch.equal(cck.circconv_single(v, w), cck.circconv_single(v, w))
+
+
+@pytest.mark.cuda
+def test_mimonet_binds_allocate_no_operand_copies(cuda):
+    """The bind of emb (256, 2, 8, 256) with keys (1, 2, 8, 256) and the
+    unbind of out (256, 1, 8, 256) allocate their output and little else:
+    no broadcast copy of either operand (4.2 MB each)."""
+    from repro_torch.kernels.circconv import ops as cc
+
+    gen = torch.Generator().manual_seed(8)
+    emb = torch.randn((256, 2, 8, 256), generator=gen).to(cuda)
+    keys = torch.randn((1, 2, 8, 256), generator=gen).to(cuda)
+    out = torch.randn((256, 1, 8, 256), generator=gen).to(cuda)
+    for fn, a in ((cc.block_circconv, emb), (cc.block_circcorr, out)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = fn(a, keys)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        assert got.shape == (256, 2, 8, 256)
+        assert extra <= got.numel() * 4 + 2 ** 20, (fn.__name__, extra)
 
 
 @pytest.mark.cuda
