@@ -85,7 +85,24 @@ port from the checkout's sources (into ``build/kernels/``), then:
      bytes against an FFT's operations) and the FFT bind, and
      vsa.bind / vsa.unbind with impl="pallas" against impl="fft"
      (CUDA-graph replay, in turns); a kernel below its bound raises;
- 23. prints one JSON line describing every kernel, the card line, and as
+ 23. NVSA abduction at ``NVSAConfig()``'s widths (D = 1024, 4 blocks, F =
+     3, M = 10 with the 5/6/10 mask): (a) the masked kernel at NVSA's
+     bipolar shape (N = 256, D = 1024, a cluster of 4) bitwise against its
+     plain version and timed beside its bound; (b) 256 RAVEN tasks with
+     oracle queries (target queries plus 0.3 x std noise) as 256 requests
+     through ``Engine(slots=256)`` on the default unitary stochastic config:
+     every request answered, finite sims, converged > 0.9, accuracy >= 0.85,
+     RPM answers/s and latency, the sweep bursts' host wall and the device
+     busy time; solve's factorize-and-abduce stage over the same tasks with
+     the same keys: equal answers, and equal indices and iterations on the
+     rows settled within 5 sweeps; (c) the same tasks' 4096 rendered panels
+     perceived on the card by a random CNN (against the CPU, atol 1e-4)
+     and served; (d) the bipolar fused variant on +-1 target queries:
+     masked launches = sweeps, every converged query decoded right, 32
+     requests replayed on the CPU (factorization bitwise, answers equal,
+     sims at atol 1e-5); (e) the adSCH-planned stream (``build_pipeline``, depth 2)
+     over 8 batches of 8 tasks equal to per-batch ``solve``;
+ 24. prints one JSON line describing every kernel, the card line, and as
      the last line ``{"ok": true, "device": {...}}``.
 
 A failed phase raises, and the script exits nonzero.  Without a CUDA device,
@@ -172,13 +189,13 @@ def graph_ms(fn, iters: int = 100, replays: int = 5) -> float:
     return start.elapsed_time(stop) / (iters * replays)
 
 
-def bound(n: int, masked: bool) -> tuple:
-    """Least time (ms) of one sweep at N = n and what bounds it: each input
-    read once, each output written once; the scores and projection FMAs,
-    the unbind products, at the fp32 rate."""
-    nbytes = 4 * (n * D + n * F * D + F * M * D + n * F * M + n * F * D
+def bound(n: int, masked: bool, d: int = D) -> tuple:
+    """Least time (ms) of one sweep at N = n (width d) and what bounds it:
+    each input read once, each output written once; the scores and
+    projection FMAs, the unbind products, at the fp32 rate."""
+    nbytes = 4 * (n * d + n * F * d + F * M * d + n * F * M + n * F * d
                   + (F * M if masked else 0))
-    flops = 4 * n * F * M * D + n * F * D * (F + 1)
+    flops = 4 * n * F * M * d + n * F * d * (F + 1)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -1997,6 +2014,356 @@ def phase_circconv_timing(torch, dev, cc, card) -> dict:
     return out
 
 
+# NVSA (phase 23): NVSAConfig()'s widths (D = 1024, 4 blocks of 256, F = 3,
+# M = 10 with the 5/6/10 mask), 256 RAVEN tasks served as 256 requests of 8
+# context queries through Engine(slots=256); the bipolar variant's sweep is
+# one launch of the masked kernel at D = 1024 (a cluster of 4 blocks).
+NVSA_TASKS = 256
+NVSA_D = 1024
+NVSA_NOISE = 0.3  # oracle frontend: query noise, x the queries' std
+NVSA_REPLAY = 32  # bipolar requests replayed on the CPU
+# The pipelined stream: 8 task batches of 8.  adSCH pipelines NVSA's
+# boundary up to batches of 8 (modeled gain 1.059; 1.035 < 1.05 at 32).
+NVSA_BATCH, NVSA_T = 8, 8
+
+
+def phase_nvsa_kernel(torch, dev, rs, ref, card) -> dict:
+    """(a) The masked kernel at NVSA's bipolar shape (N = 256, F = 3, M =
+    10, mask 5/6/10, D = 1024) against its plain version, bitwise on +-1
+    inputs, then timed by CUDA-graph replay in turns beside its bound."""
+    from repro_torch.kernels.resonator_step import kernel as k
+
+    gen = torch.Generator().manual_seed(23)
+    qs = bipolar(gen, (ENGINE_ROWS, NVSA_D), dev)
+    est = bipolar(gen, (ENGINE_ROWS, F, NVSA_D), dev)
+    cbs = bipolar(gen, (F, M, NVSA_D), dev)
+    mask = torch.stack([torch.arange(M) < s for s in (5, 6, 10)]).to(dev)
+    launches = rs.masked_launches
+    err = 0.0
+    for act in ("identity", "abs"):
+        got = rs.fused_resonator_step_batch_masked(qs, est, cbs, mask, act)
+        want = ref.resonator_step_batch_masked_ref(qs, est, cbs, mask, act)
+        torch.cuda.synchronize()
+        err = max(err, max((g - w).abs().max().item()
+                           for g, w in zip(got, want)))
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"masked kernel != plain version at N="
+                                 f"{ENGINE_ROWS} D={NVSA_D} {act}: max "
+                                 f"|diff| {err}")
+    kern = lambda: k.resonator_step_batch_masked(qs, est, cbs, mask)
+    plain = lambda: ref.resonator_step_batch_masked_ref(qs, est, cbs, mask)
+    p1, k1, k2, p2 = (graph_ms(plain), graph_ms(kern), graph_ms(kern),
+                      graph_ms(plain))
+    rs.masked_launches = launches  # not a path's launches
+    geo = k.launch_geometry(
+        ENGINE_ROWS, F, M, NVSA_D, 128,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    b_ms, b_by = bound(ENGINE_ROWS, True, NVSA_D)
+    out = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "bound_ms": b_ms,
+           "bound_by": b_by, "max_abs_err": err}
+    print(f"phase 23a: resonator_step_batch_masked at NVSA's shape N="
+          f"{ENGINE_ROWS} F={F} M={M} (mask 5/6/10) D={NVSA_D} ({geo}) on "
+          f"{card}: bitwise equal to the plain version (identity, abs); "
+          f"device time (CUDA graph) kernel {k1:.5f}/{k2:.5f} ms, plain "
+          f"{p1:.5f}/{p2:.5f} ms, bound {b_ms:.5f} ms ({b_by}), kernel at "
+          f"{b_ms / out['ms']:.1%} of the bound", flush=True)
+    return out
+
+
+def _nvsa_tasks(render: bool) -> dict:
+    from repro_torch.data import raven
+
+    return raven.RavenDataset(raven.RavenConfig(
+        batch_size=NVSA_TASKS, render=render)).next_batch()
+
+
+def _nvsa_queries(torch, nvsa, cbs, b, cfg, noise: float, seed: int):
+    """Context [T, 8, D] and candidate [T, 8, D] target queries of the tasks
+    ``b`` plus ``noise`` x std Gaussian noise, computed on the CPU from CPU
+    codebooks (one seed, one set of bits on every device)."""
+    import numpy as np
+
+    from repro_torch.data import raven
+
+    attrs = np.stack([b[f"grid_{a}"].reshape(NVSA_TASKS, 9)[:, :8]
+                      for a in raven.ATTRS], -1)
+    cands = np.stack([b[f"cand_{a}"] for a in raven.ATTRS], -1)
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for a in (attrs, cands):
+        q = nvsa.target_query(cbs, torch.from_numpy(a), cfg)
+        if noise:
+            q = q + noise * q.std() * torch.randn(q.shape, generator=gen)
+        out.append(q)
+    return out
+
+
+def _serve_nvsa(torch, engine, spec, ctx, cand, keys, dev, obs=None):
+    """Every task as one request of its 8 context queries (pinned keys) with
+    its candidates in ``meta``; returns (requests in task order, engine,
+    host wall s)."""
+    import numpy as np
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    eng = engine.Engine(spec, slots=ENGINE_ROWS, obs=obs, device=dev)
+    sync()
+    t0 = time.perf_counter()
+    ids = [eng.submit(ctx[t], keys=keys[8 * t:8 * t + 8],
+                      meta={"cand": cand[t]}) for t in range(len(ctx))]
+    done = {r.id: r for r in eng.drain()}
+    sync()
+    wall = time.perf_counter() - t0
+    reqs = [done[i] for i in ids]
+    for t, r in enumerate(reqs):
+        if "answer" not in r.result:
+            raise AssertionError(f"NVSA task {t} got no answer")
+        if not np.isfinite(r.result["sims"]).all():
+            raise AssertionError(f"NVSA task {t}: non-finite sims")
+    return reqs, eng, wall
+
+
+def phase_nvsa(torch, dev, rs, card) -> dict:
+    """(b)-(e): NVSA abduction at NVSAConfig()'s widths on the card."""
+    import dataclasses
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import engine, obs
+    from repro_torch.core import factorizer as fz
+    from repro_torch.core import vsa
+    from repro_torch.data import raven
+    from repro_torch.models import cnn, nvsa
+
+    t_phase = time.perf_counter()
+
+    def since() -> str:
+        return f"[{time.perf_counter() - t_phase:.1f} s into phase 23]"
+
+    out = {}
+    cfg = nvsa.NVSAConfig()
+    b = _nvsa_tasks(render=True)
+    truth = b["answer"]
+    spec = engine.registry.build("nvsa_abduction", 0, cfg=cfg, device=dev)
+    cbs_cpu, mask_cpu = nvsa.make_codebooks(0, cfg, device="cpu")
+    if not torch.equal(spec.codebooks.cpu(), cbs_cpu):
+        raise AssertionError("the spec's codebooks are not make_codebooks(0)'s")
+    ctx_cpu, cand_cpu = _nvsa_queries(torch, nvsa, cbs_cpu, b, cfg,
+                                      NVSA_NOISE, seed=5)
+    ctx, cand = ctx_cpu.to(dev), cand_cpu.to(dev)
+    keys = fz.draw_keys(9, 8 * NVSA_TASKS)
+
+    # (b) the oracle cell, default config (unitary, stochastic Gauss-Seidel)
+    _serve_nvsa(torch, engine, spec, ctx[:4], cand[:4], keys, dev)  # warm-up
+    print(f"phase 23b: tasks, queries and the warm-up done {since()}",
+          flush=True)
+    reqs, eng, wall = _serve_nvsa(torch, engine, spec, ctx, cand, keys, dev)
+    answers = np.array([r.result["answer"] for r in reqs])
+    iters = np.stack([r.iterations for r in reqs])
+    conv = np.stack([r.factorization.converged for r in reqs])
+    acc, conv_share = float((answers == truth).mean()), float(conv.mean())
+    snap = eng.snapshot()
+    rec = obs.Recorder()  # the same run again, traced: where the wall goes
+    # Device activity only: host events of the whole run made the trace's
+    # post-processing take most of a minute.
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, eng_tr, wall_tr = _serve_nvsa(torch, engine, spec, ctx, cand, keys,
+                                         dev, obs=rec)
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kern:
+        raise AssertionError("the profiler recorded no device events")
+    busy = sum(getattr(e, "self_device_time_total", 0.0) for e in kern) / 1e3
+    spent: dict = {}
+    for sp in rec.spans.snapshot():
+        if sp.duration is not None:
+            spent[sp.name] = spent.get(sp.name, 0.0) + sp.duration
+    out["oracle"] = {"wall_ms": wall * 1e3, "answers_per_s": NVSA_TASKS / wall,
+                     "p50_ms": snap["latency_p50_ms"],
+                     "p99_ms": snap["latency_p99_ms"],
+                     "sweeps": eng.sweeps_total, "accuracy": acc,
+                     "mean_iterations": float(iters.mean()),
+                     "converged": conv_share}
+    print(f"phase 23b: NVSA oracle cell (NVSAConfig(): D={NVSA_D}, 4 blocks, "
+          f"F=3, M=10 mask 5/6/10, unitary, stochastic Gauss-Seidel, noise "
+          f"0.3, restarts every 20) on {card}: {NVSA_TASKS} RPM tasks as "
+          f"{NVSA_TASKS} requests of 8 queries through Engine(slots="
+          f"{ENGINE_ROWS}): accuracy {acc:.4f}, converged {conv_share:.4f}, "
+          f"mean iterations {float(iters.mean()):.3f}; sweeps_per_step="
+          f"{eng.sweeps_per_step} sweeps_total={eng.sweeps_total} steps="
+          f"{eng.steps_total}; {NVSA_TASKS / wall:.1f} RPM answers/s, p50 "
+          f"{snap['latency_p50_ms']:.3f} ms, p99 {snap['latency_p99_ms']:.3f} "
+          f"ms, wall {wall * 1e3:.2f} ms; traced run (profiler on): wall "
+          f"{wall_tr * 1e3:.2f} ms = submit "
+          f"{(wall_tr - spent['step']) * 1e3:.2f} ms + steps "
+          f"{spent['step'] * 1e3:.2f} ms (fill {spent['fill'] * 1e3:.2f}, "
+          f"sweep bursts {spent['sweep-burst'] * 1e3:.2f}, retire with the "
+          f"abduction tail {spent['retire'] * 1e3:.2f}); device busy "
+          f"{busy:.3f} ms over the whole run ({busy / (wall_tr * 1e3):.1%} of "
+          f"its wall)" + " " + since(), flush=True)
+    if conv_share <= 0.9 or acc < 0.85:
+        raise AssertionError(f"NVSA oracle cell: converged {conv_share} "
+                             f"(needs > 0.9), accuracy {acc} (needs >= 0.85)")
+    # solve's factorize-and-abduce stage over the same tasks in one batch,
+    # with the same keys (drawn from the same seed)
+    beliefs, res = nvsa.beliefs_from_queries(ctx.reshape(-1, NVSA_D),
+                                             spec.codebooks, spec.valid_mask,
+                                             9, cfg)
+    ans_b, _ = nvsa.abduce_answers(beliefs.reshape(NVSA_TASKS, 8, 3, M), cand,
+                                   spec.codebooks, cfg)
+    ans_b = ans_b.cpu().numpy()
+    idx_b = res.indices.cpu().numpy().reshape(NVSA_TASKS, 8, 3)
+    it_b = res.iterations.cpu().numpy().reshape(NVSA_TASKS, 8)
+    idx_e = np.stack([r.factorization.indices for r in reqs])
+    fast = iters <= FAST_SWEEPS
+    differ = (idx_e != idx_b).any(-1) | (iters != it_b)
+    rows = [f"task {t} query {q} ({iters[t, q]} -> {it_b[t, q]} sweeps)"
+            for t, q in zip(*np.nonzero(differ))]
+    print(f"phase 23b: solve's stage on the card over the same {NVSA_TASKS} "
+          f"tasks in one batch, same keys: {int(differ.sum())} of "
+          f"{differ.size} rows differ from the engine's in indices or "
+          f"iterations [{'; '.join(rows[:16])}]; of the {int(fast.sum())} "
+          f"rows the engine settled within {FAST_SWEEPS} sweeps, "
+          f"{int((differ & fast).sum())} differ; "
+          f"{int((ans_b != answers).sum())} answers differ" + " " + since(), flush=True)
+    if (differ & fast).any() or (ans_b != answers).any():
+        raise AssertionError("NVSA: solve and Engine disagree on a fast row "
+                             "or an answer")
+
+    # (c) the image path, random CNN weights
+    model = cnn.init(cfg.cnn, 1, device=dev)
+    model_cpu = cnn.init(cfg.cnn, 1, device="cpu")
+    imgs9 = torch.from_numpy(b["images"])  # the 9th panel is zero
+    imgs = imgs9[:, :8]
+    cimgs = torch.from_numpy(b["candidate_images"].copy())
+    q_gpu = [nvsa.perceive(model, x.to(dev), cfg, spec.codebooks)
+             for x in (imgs, cimgs)]
+    q_cpu = [nvsa.perceive(model_cpu, x, cfg, cbs_cpu) for x in (imgs, cimgs)]
+    diff = max((g.cpu() - c).abs().max().item() for g, c in zip(q_gpu, q_cpu))
+    if not diff <= 1e-4:
+        raise AssertionError(f"perceive on the card differs from the CPU by "
+                             f"{diff} > 1e-4")
+    reqs_i, eng_i, wall_i = _serve_nvsa(torch, engine, spec, *q_gpu, keys, dev)
+    acc_i = float((np.array([r.result["answer"] for r in reqs_i]) == truth)
+                  .mean())
+    it_i = np.stack([r.iterations for r in reqs_i])
+    out["image"] = {"wall_ms": wall_i * 1e3, "accuracy": acc_i,
+                    "sweeps": eng_i.sweeps_total}
+    print(f"phase 23c: NVSA image path, random CNN weights: "
+          f"{2 * 8 * NVSA_TASKS} panels perceived on the card, within "
+          f"{diff:.3g} of the CPU (atol 1e-4, TF32 off); {NVSA_TASKS} "
+          f"requests all answered with finite sims; accuracy {acc_i:.4f} "
+          f"(untrained weights: not a result), mean iterations "
+          f"{float(it_i.mean()):.2f}, sweeps_total={eng_i.sweeps_total}, wall "
+          f"{wall_i * 1e3:.2f} ms" + " " + since(), flush=True)
+
+    # (d) the bipolar fused variant: one masked launch per sweep
+    cfg_b = nvsa.NVSAConfig(vsa=vsa.VSAConfig(NVSA_D, NVSA_D))
+    cfg_b = dataclasses.replace(cfg_b, factorizer=dataclasses.replace(
+        cfg_b.factorizer, noise_std=0.0, restart_every=0, synchronous=True))
+    spec_b = engine.registry.build("nvsa_abduction", 0, cfg=cfg_b,
+                                   fused_step=True, device=dev)
+    cbs_b = nvsa.make_codebooks(0, cfg_b, device="cpu")[0]
+    ctx_b, cand_b = _nvsa_queries(torch, nvsa, cbs_b, b, cfg_b, 0.0, seed=0)
+    _serve_nvsa(torch, engine, spec_b, ctx_b[:4].to(dev), cand_b[:4].to(dev),
+                keys, dev)  # warm-up
+    rs.masked_launches = 0  # the bipolar NVSA run starts here
+    reqs_b, eng_b, wall_b = _serve_nvsa(torch, engine, spec_b, ctx_b.to(dev),
+                                        cand_b.to(dev), keys, dev)
+    launches = rs.masked_launches  # ... and ends here
+    if launches != eng_b.sweeps_total or launches == 0:
+        raise AssertionError(f"masked launches {launches} != sweeps_total "
+                             f"{eng_b.sweeps_total}")
+    attrs = np.stack([b[f"grid_{a}"].reshape(NVSA_TASKS, 9)[:, :8]
+                      for a in raven.ATTRS], -1)
+    idx_d = np.stack([r.factorization.indices for r in reqs_b])
+    conv_d = np.stack([r.factorization.converged for r in reqs_b])
+    right = (idx_d == attrs).all(-1)
+    # A converged query decodes right.  Deterministic Jacobi sweeps leave a
+    # few queries in a limit cycle, unconverged at max_iters, as the
+    # reference's bipolar NVSA does on the same bits (tests/
+    # test_torch_nvsa.py holds the two bitwise): 43 of the 2048 on the CPU.
+    if not right[conv_d].all() or right.mean() < 0.97:
+        raise AssertionError(f"bipolar NVSA: {int((~right).sum())} queries "
+                             f"decoded wrong, {int((~right & conv_d).sum())} "
+                             "of them converged")
+    acc_b = float((np.array([r.result["answer"] for r in reqs_b]) == truth)
+                  .mean())
+    spec_c = engine.registry.build("nvsa_abduction", 0, cfg=cfg_b,
+                                   fused_step=True, device="cpu")
+    reqs_c, _, _ = _serve_nvsa(torch, engine, spec_c, ctx_b[:NVSA_REPLAY],
+                               cand_b[:NVSA_REPLAY], keys,
+                               torch.device("cpu"))
+    # The factorization is integer arithmetic on +-1 operands: bitwise.  The
+    # abduction tail is fp32 on soft beliefs (exp, cuBLAS): answers equal,
+    # sims (cosines in [-1, 1], summed over D = 1024) within atol 1e-5.
+    sims_diff = 0.0
+    for t, (g, c) in enumerate(zip(reqs_b, reqs_c)):
+        for f in ("indices", "iterations", "converged", "scores"):
+            if not np.array_equal(getattr(g.factorization, f),
+                                  getattr(c.factorization, f)):
+                raise AssertionError(f"bipolar NVSA task {t}: card and CPU "
+                                     f"{f} differ")
+        np.testing.assert_allclose(g.factorization.reconstruction_sim,
+                                   c.factorization.reconstruction_sim,
+                                   rtol=1e-6)
+        if g.result["answer"] != c.result["answer"]:
+            raise AssertionError(f"bipolar NVSA task {t}: card and CPU "
+                                 "answers differ")
+        np.testing.assert_allclose(g.result["sims"], c.result["sims"],
+                                   atol=1e-5, rtol=0)
+        sims_diff = max(sims_diff, float(np.abs(g.result["sims"]
+                                                - c.result["sims"]).max()))
+    out["bipolar"] = {"wall_ms": wall_b * 1e3, "accuracy": acc_b,
+                      "sweeps": eng_b.sweeps_total, "launches": launches}
+    print(f"phase 23d: bipolar fused NVSA (D={NVSA_D}, lanes 1, Jacobi, noise "
+          f"0): {NVSA_TASKS} requests, {int(right.sum())} of {right.size} "
+          f"queries decoded to their attributes ({int(conv_d.sum())} converged"
+          f", every converged one right; the rest limit cycles at max_iters), "
+          f"accuracy {acc_b:.4f}; sweeps_total={eng_b.sweeps_total} masked "
+          f"kernel launches={launches}; wall {wall_b * 1e3:.2f} ms, "
+          f"{NVSA_TASKS / wall_b:.1f} RPM answers/s; {NVSA_REPLAY} requests "
+          f"replayed on the CPU: indices, iterations, converged and scores "
+          f"bit-equal, answers equal, sims within {sims_diff:.3g} (atol "
+          f"1e-5)" + " " + since(), flush=True)
+
+    # (e) the adSCH-planned stream: 8 task batches of 32, images
+    runner = engine.build_pipeline(nvsa.stage_graph(
+        model, spec.codebooks, spec.valid_mask, cfg, batch=NVSA_BATCH))
+    if runner.depth != 2:
+        raise AssertionError(f"NVSA pipeline depth {runner.depth} != 2")
+    n = NVSA_T * NVSA_BATCH
+    stream_i = imgs9[:n].reshape(NVSA_T, NVSA_BATCH, 9, 32, 32).to(dev)
+    stream_c = cimgs[:n].reshape(NVSA_T, NVSA_BATCH, 8, 32, 32).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = runner((stream_i, stream_c), 13)
+    torch.cuda.synchronize()
+    t_pipe = time.perf_counter() - t0
+    gens = engine.batch_generators(13, NVSA_T)
+    t0 = time.perf_counter()
+    want = torch.stack([nvsa.solve(model, {"images": stream_i[t],
+                                           "candidate_images": stream_c[t]},
+                                   spec.codebooks, spec.valid_mask, gens[t],
+                                   cfg)["answer"] for t in range(NVSA_T)])
+    torch.cuda.synchronize()
+    t_seq = time.perf_counter() - t0
+    if not torch.equal(got, want):
+        raise AssertionError(f"pipelined stream != per-batch solve in "
+                             f"{int((got != want).sum())} answers")
+    out["stream"] = {"wall_ms": t_pipe * 1e3, "sequential_ms": t_seq * 1e3}
+    print(f"phase 23e: NVSA stream through build_pipeline(stage_graph(batch="
+          f"{NVSA_BATCH})): depth {runner.depth}, phases {runner.phase_names},"
+          f" {NVSA_T} batches; answers equal to {NVSA_T} per-batch solve calls"
+          f" with the same generators; wall {t_pipe * 1e3:.2f} ms against "
+          f"{t_seq * 1e3:.2f} ms sequential (one stream: ordered, not "
+          f"overlapped)" + " " + since(), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2046,6 +2413,8 @@ def main() -> int:
     mimo = phase_mimonet(torch, dev, cc, card)
     hrr_launches = phase_hrr(torch, dev, cc)
     cc_times = phase_circconv_timing(torch, dev, cc, card)
+    nvsa_kernel = phase_nvsa_kernel(torch, dev, rs, ref, card)
+    nvsa_run = phase_nvsa(torch, dev, rs, card)
 
     src = "src/repro_torch/kernels/resonator_step/csrc/resonator_step.cu"
     kernels = [
@@ -2058,8 +2427,13 @@ def main() -> int:
          "source": src,
          "replaces": "src/repro/kernels/resonator_step/kernel.py:184",
          "launches": masked_launches,
-         "max_abs_err": err["resonator_step_batch_masked"],
-         **times["resonator_step_batch_masked"], "library_ms": None},
+         "max_abs_err": max(err["resonator_step_batch_masked"],
+                            nvsa_kernel["max_abs_err"]),
+         **times["resonator_step_batch_masked"], "library_ms": None,
+         "nvsa_launches": nvsa_run["bipolar"]["launches"],
+         "nvsa_shape": f"N = {ENGINE_ROWS}, F = {F}, M = {M}, D = {NVSA_D}",
+         **{f"nvsa_{key}": nvsa_kernel[key]
+            for key in ("ms", "plain_ms", "bound_ms", "bound_by")}},
         {"name": "resonator_step_batch_local", "route": "cuda",
          "source": src,
          "replaces": "src/repro/kernels/resonator_step/kernel.py:218",

@@ -104,3 +104,20 @@ def mimonet_params_from_reference(np_params: dict, device=DEFAULT_DEVICE):
 
     return MIMONet({k: from_numpy(np.asarray(v, np.float32), device)
                     for k, v in np_params.items()})
+
+
+def cnn_params_from_reference(np_params: dict, device=DEFAULT_DEVICE):
+    """The reference's ``cnn.init`` dict (numpy leaves) as the port's
+    :class:`repro_torch.models.cnn.CNN` on ``device``, float32: HWIO
+    convolution weights transposed to OIHW, every other leaf (the heads'
+    ``[d_in, d_out]`` weights, the biases) as it is.  NVSA's padded
+    codebooks and validity mask cross with :func:`spec_arrays_from_reference`."""
+    from repro_torch.models.cnn import CNN
+
+    out = {}
+    for k, v in np_params.items():
+        a = np.asarray(v, np.float32)
+        if k.startswith("conv") and k.endswith("_w"):
+            a = a.transpose(3, 2, 0, 1)  # [kh, kw, in, out] -> [out, in, kh, kw]
+        out[k] = from_numpy(np.ascontiguousarray(a), device)
+    return CNN(out)

@@ -1,6 +1,12 @@
-"""Built-in serving pipelines of the port: LVRF row decoding, LM decode.
+"""Built-in serving pipelines of the port: NVSA RPM abduction, LVRF row
+decoding, LM decode.
 
-``lvrf_rows`` decodes bipolar MAP row encodings against permutation-rolled
+Two factorization workloads behind the same ``Engine.submit/step/drain`` API.
+``nvsa_abduction`` factorizes padded block-code attribute books (unitary
+algebra, F=3, M=10 padded with a 5/6/10 mask, D=1024, stochastic
+Gauss-Seidel sweeps) and ranks RPM candidates through probabilistic
+abduction; a bipolar NVSA config with ``fused_step=True`` runs each sweep as
+one launch of the masked CUDA resonator kernel.  ``lvrf_rows`` decodes bipolar MAP row encodings against permutation-rolled
 value atoms (F=3, M=n_values, D=2048, deterministic).  With
 ``fused_step=True`` every sweep is one launch of the CUDA resonator kernel.
 
@@ -8,8 +14,7 @@ value atoms (F=3, M=n_values, D=2048, deterministic).  With
 prefill/decode) re-expressed as a registered StageGraph + ``step_ops``, so
 the same adSCH machinery
 (:func:`repro_torch.engine.engine.derive_sweeps_per_step`) prices LM steps; the request loop lives in
-:class:`repro_torch.runtime.LMEngine`.  NVSA abduction waits for a later
-slice of the port (ROADMAP Queue A item 2).
+:class:`repro_torch.runtime.LMEngine`.
 """
 from __future__ import annotations
 
@@ -22,6 +27,62 @@ from repro_torch.device import DEFAULT_DEVICE, generator as as_generator, resolv
 from repro_torch.engine.registry import ServeSpec, register
 from repro_torch.engine.stage import Stage, StageGraph
 from repro_torch.models import lvrf as lvrf_mod
+from repro_torch.models import nvsa as nvsa_mod
+
+
+@register("nvsa_abduction")
+def nvsa_abduction(generator, *, cfg=None, params=None, batch: int = 8,
+                   expected_sweeps: int | None = None,
+                   fused_step: bool = False, codebooks=None, mask=None,
+                   device=DEFAULT_DEVICE) -> ServeSpec:
+    """NVSA RPM abduction.
+
+    Engine requests: the 8 context-panel queries of one task ([8, D]), with
+    ``meta={"cand": [8, D]}`` candidate queries; the postprocess runs the
+    same beliefs -> abduce -> execute -> rank tail as :func:`nvsa.solve`.
+    With ``params`` (a :class:`repro_torch.models.cnn.CNN`) the ServeSpec
+    also carries the runnable two-stage graph for stream serving.
+
+    ``fused_step=True`` requests the fused CUDA sweep.  It only engages
+    where :func:`repro_torch.core.factorizer.fused_sweep_eligible` holds:
+    the default NVSA config is unitary/Gauss-Seidel/stochastic, so there the
+    flag is a no-op (the two-pass sweep, unchanged trajectories); bipolar
+    Jacobi noise-free NVSA configs (``vsa.lanes == 1``) run each sweep as
+    one launch of the masked kernel.  ``codebooks`` / ``mask`` replace the
+    books drawn from ``generator`` (e.g. the reference's, converted by
+    :mod:`repro_torch.convert`).
+    """
+    import dataclasses as _dc
+
+    dev = resolve(device)
+    cfg = cfg if cfg is not None else nvsa_mod.NVSAConfig()
+    if fused_step and not cfg.factorizer.fused_step:
+        cfg = _dc.replace(cfg, factorizer=_dc.replace(
+            cfg.factorizer, fused_step=True))
+    cbs, mk = nvsa_mod.make_codebooks(as_generator(generator), cfg, device=dev)
+    cbs = cbs if codebooks is None else codebooks.to(dev)
+    mk = mk if mask is None else mask.to(dev)
+    graph = nvsa_mod.stage_graph(params, cbs, mk, cfg, batch=batch,
+                                 expected_sweeps=expected_sweeps)
+
+    def postprocess(queries, res, meta):
+        q = torch.as_tensor(queries)
+        books, m = cbs.to(q.device), mk.to(q.device)
+        beliefs = nvsa_mod.beliefs_from_scores(
+            q, torch.as_tensor(res.scores, device=q.device), m, cfg)
+        out = {"indices": res.indices, "iterations": res.iterations,
+               "converged": res.converged, "beliefs": beliefs.cpu().numpy()}
+        if meta is not None and "cand" in meta:
+            cand = torch.as_tensor(meta["cand"], dtype=torch.float32,
+                                   device=q.device)
+            answer, sims = nvsa_mod.abduce_answers(beliefs[None], cand[None],
+                                                   books, cfg)
+            out["answer"] = int(answer[0])
+            out["sims"] = sims[0].cpu().numpy()
+        return out
+
+    return ServeSpec("nvsa_abduction", cbs, cfg.factorizer, mk, graph,
+                     postprocess)
 
 
 @register("lvrf_rows")

@@ -828,3 +828,83 @@ def test_mimonet_on_the_card_matches_its_fft_run(cuda):
         assert bool(torch.isfinite(g).all())
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
                                    atol=1e-5, rtol=1e-4)
+
+
+# NVSA: the masked kernel at NVSA's bipolar width (D = 1024, a cluster of 4
+# blocks), the CNN frontend, and a bipolar fused NVSA engine run.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 37, 256])
+@pytest.mark.parametrize("act", ["identity", "abs"])
+def test_masked_kernel_at_nvsa_width_bit_equals_plain_version(cuda, n, act):
+    gen = torch.Generator().manual_seed(n)
+    cbs = _bipolar(gen, (3, 10, 1024), cuda)
+    qs = _bipolar(gen, (n, 1024), cuda)
+    est = _bipolar(gen, (n, 3, 1024), cuda)
+    mask = torch.stack([torch.arange(10) < s for s in (5, 6, 10)]).to(cuda)
+    before = ops.masked_launches
+    got = ops.fused_resonator_step_batch_masked(qs, est, cbs, mask, act)
+    want = ref.resonator_step_batch_masked_ref(qs, est, cbs, mask, act)
+    assert ops.masked_launches == before + 1
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_cnn_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.data import raven
+    from repro_torch.models import cnn
+
+    cfg = cnn.CNNConfig()
+    b = raven.RavenDataset(raven.RavenConfig(batch_size=4)).next_batch()
+    imgs = torch.from_numpy(b["candidate_images"].reshape(-1, 32, 32))
+    got = cnn.apply(cnn.init(cfg, 1, device=cuda), imgs.to(cuda), cfg)
+    want = cnn.apply(cnn.init(cfg, 1, device="cpu"), imgs, cfg)
+    for key in ("query", "features"):
+        np.testing.assert_allclose(got[key].cpu().numpy(), want[key].numpy(),
+                                   atol=1e-4, rtol=0)
+    for g, w in zip(got["attr_logits"], want["attr_logits"]):
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), atol=1e-4,
+                                   rtol=0)
+
+
+@pytest.mark.cuda
+def test_bipolar_fused_nvsa_engine_on_the_card_matches_the_cpu(cuda):
+    import dataclasses
+
+    from repro_torch import engine
+    from repro_torch.data import raven
+    from repro_torch.models import nvsa
+
+    cfg = nvsa.NVSAConfig(vsa=vsa.VSAConfig(1024, 1024))
+    cfg = dataclasses.replace(cfg, factorizer=dataclasses.replace(
+        cfg.factorizer, noise_std=0.0, restart_every=0, synchronous=True))
+    b = raven.RavenDataset(raven.RavenConfig(batch_size=16,
+                                             render=False)).next_batch()
+    attrs = np.stack([b[f"grid_{a}"].reshape(16, 9)[:, :8]
+                      for a in raven.ATTRS], -1)
+    cands = np.stack([b[f"cand_{a}"] for a in raven.ATTRS], -1)
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        spec = engine.registry.build("nvsa_abduction", 0, cfg=cfg,
+                                     fused_step=True, device=dev)
+        ctx = nvsa.target_query(spec.codebooks, torch.from_numpy(attrs), cfg)
+        cand = nvsa.target_query(spec.codebooks, torch.from_numpy(cands), cfg)
+        eng = engine.Engine(spec, slots=32, device=dev)
+        before = ops.masked_launches
+        ids = [eng.submit(ctx[t], meta={"cand": cand[t]}, generator=t)
+               for t in range(16)]
+        done = {r.id: r for r in eng.drain()}
+        if dev.type == "cuda":
+            assert ops.masked_launches - before == eng.sweeps_total > 0
+        runs.append([done[i] for i in ids])
+    for g, w in zip(*runs):  # the factorization bitwise (+-1 operands)
+        for name in ("indices", "iterations", "converged", "scores"):
+            np.testing.assert_array_equal(getattr(g.factorization, name),
+                                          getattr(w.factorization, name))
+        # the abduction tail: fp32 on soft beliefs (exp, cuBLAS); sims are
+        # cosines in [-1, 1] summed over D = 1024
+        assert g.result["answer"] == w.result["answer"]
+        np.testing.assert_allclose(g.result["sims"], w.result["sims"],
+                                   atol=1e-5, rtol=0)
