@@ -102,7 +102,30 @@ port from the checkout's sources (into ``build/kernels/``), then:
      requests replayed on the CPU (factorization bitwise, answers equal,
      sims at atol 1e-5); (e) the adSCH-planned stream (``build_pipeline``, depth 2)
      over 8 batches of 8 tasks equal to per-batch ``solve``;
- 24. prints one JSON line describing every kernel, the card line, and as
+ 24. the supervised runtime: one ``Runtime(obs=Recorder())`` over three
+     engines at full width, ``Engine(slots=256)`` for LVRF (fused sweep,
+     a measured-cost ``RetunePolicy`` that re-tunes 256 -> 128 slots
+     mid-run), ``Engine(slots=256)`` for NVSA (``NVSAConfig()``) and
+     ``LMEngine(slots=8, paged bs 16, chunk 64)`` for Llama 3.2 3B (28
+     layers, random bf16 weights): (a) phase 3's 512 LVRF rows plus 8
+     junk rows, 64 RAVEN tasks and 8 prompts of 16-128 tokens (16 new
+     each), submitted from the main thread in 8 interleaved waves, every
+     key pinned: LVRF bitwise equal to a bare ``Engine``, NVSA to the
+     unitary contract, LM tokens to solo decodes (near ties excepted),
+     re-tunes >= 1, resonator_step_batch launches = sweeps + the re-tune's
+     timed sweeps, flash_decode launches = 28 x decode steps; (b) the
+     reference test's chaos plans (seeds 101/202/303) over fresh engines:
+     every future resolved or a structured fault, a deadline_s=0 request
+     missed, every engine serving, faults injected and recovered, a NaN
+     state corruption caught by ``health_check`` on the card, survivors
+     meeting (a)'s contracts, and zero-rate ``ChaosEngine``s giving (a)'s
+     results; (c) an overload of the LVRF engine (512 best-effort rows to
+     max_iters, then 64 interactive rows): interactive SLO attainment >=
+     0.9 under the ``FleetController``, beside the FIFO baseline's; (d)
+     the span attribution of (a): every request's buckets cover >= 95 % of
+     its wall; requests/s, p50/p99 and bucket totals per engine, and the
+     Chrome trace in ``chiprun_out/runtime_trace.json``;
+ 25. prints one JSON line describing every kernel, the card line, and as
      the last line ``{"ok": true, "device": {...}}``.
 
 A failed phase raises, and the script exits nonzero.  Without a CUDA device,
@@ -140,6 +163,12 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def sync(torch, dev):
+    """Wait for the card (no-op on the CPU, where phases are rehearsed)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
 
 
 def bipolar(gen, shape, device):
@@ -2104,17 +2133,13 @@ def _serve_nvsa(torch, engine, spec, ctx, cand, keys, dev, obs=None):
     host wall s)."""
     import numpy as np
 
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-
     eng = engine.Engine(spec, slots=ENGINE_ROWS, obs=obs, device=dev)
-    sync()
+    sync(torch, dev)
     t0 = time.perf_counter()
     ids = [eng.submit(ctx[t], keys=keys[8 * t:8 * t + 8],
                       meta={"cand": cand[t]}) for t in range(len(ctx))]
     done = {r.id: r for r in eng.drain()}
-    sync()
+    sync(torch, dev)
     wall = time.perf_counter() - t0
     reqs = [done[i] for i in ids]
     for t, r in enumerate(reqs):
@@ -2364,6 +2389,571 @@ def phase_nvsa(torch, dev, rs, card) -> dict:
     return out
 
 
+# Phase 24: the supervised runtime over LVRF, NVSA and Llama 3.2 3B.
+RT_JUNK = 8  # Gaussian LVRF rows that hold their slots to max_iters
+RT_WAVES = 8  # the traffic goes in as this many interleaved waves
+RT_NVSA_TASKS = 64
+RT_LM_PROMPTS, RT_LM_NEW, RT_LM_SLOTS = 8, 16, 8
+RT_LM_LENS = (16, 128)  # prompt lengths, uniform, inclusive
+# The longest prompt, its 16 tokens and the overshoot of an adSCH decode
+# burst (12 steps at 8 slots): 155 positions, 10 blocks a slot.
+RT_LM_MAX_LEN = 160
+RT_LM_LAYERS = None  # None: all 28 layers
+RT_RETUNE_TO = 128  # the re-tune's one candidate: 256 -> 128 slots mid-run
+RT_TIMEOUT_S = 600.0  # per-future wait; the phase takes seconds
+# (b): the reference test's plans (tests/test_runtime_faults.py:569-579)
+RT_CHAOS = {"lvrf": dict(seed=101, step_error_rate=0.12, corrupt_rate=0.08,
+                         max_faults=3),
+            "nvsa": dict(seed=202, step_error_rate=0.15, max_faults=2),
+            "lm": dict(seed=303, step_error_rate=0.1, submit_reject_rate=0.3,
+                       max_faults=3)}
+# (c): best-effort rows that fill every slot twice over, then interactive
+RT_OVER_JUNK, RT_OVER_GOOD = 2 * ENGINE_ROWS, 64
+RT_COVERAGE = 0.95  # (d): the attribution's contract per request
+
+
+def rt_traffic(torch, dev) -> dict:
+    """Phase 24's engines' specs, weights and requests: phase 3's 512 LVRF
+    rows plus RT_JUNK Gaussian rows, phase 23b's first 64 RAVEN tasks
+    (oracle queries, 0.3 std noise), 8 prompts for Llama 3.2 3B; every key
+    pinned."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import engine
+    from repro_torch.configs import registry
+    from repro_torch.core import factorizer as fz
+    from repro_torch.device import generator
+    from repro_torch.models import lvrf, nvsa
+    from repro_torch.nn import transformer as T
+
+    t = {}
+    cfg = lvrf.LVRFConfig()
+    atoms = lvrf.init_atoms(generator(0), cfg, device=dev)
+    t["lvrf_spec"] = engine.registry.build("lvrf_rows", 0, fused_step=True,
+                                           atoms=atoms, device=dev)
+    t["vals"] = np.random.default_rng(1).integers(0, cfg.n_values, (512, 3))
+    junk = np.random.default_rng(24).normal(size=(RT_JUNK, cfg.vsa.dim))
+    t["lvrf_q"] = torch.cat([lvrf.encode_row(atoms, t["vals"], cfg),
+                             torch.from_numpy(junk.astype(np.float32))
+                             .to(dev)])
+    t["lvrf_keys"] = fz.draw_keys(24, len(t["lvrf_q"]))
+    cfg_n = nvsa.NVSAConfig()
+    t["nvsa_spec"] = engine.registry.build("nvsa_abduction", 0, cfg=cfg_n,
+                                           device=dev)
+    b = _nvsa_tasks(render=False)
+    cbs_cpu, _ = nvsa.make_codebooks(0, cfg_n, device="cpu")
+    ctx, cand = _nvsa_queries(torch, nvsa, cbs_cpu, b, cfg_n, NVSA_NOISE,
+                              seed=5)
+    t["ctx"] = ctx[:RT_NVSA_TASKS].to(dev)
+    t["cand"] = cand[:RT_NVSA_TASKS].to(dev)
+    t["truth"] = b["answer"][:RT_NVSA_TASKS]
+    t["nvsa_keys"] = fz.draw_keys(25, 8 * RT_NVSA_TASKS)
+    lm_cfg = registry.get("llama3.2-3b").full()
+    if RT_LM_LAYERS is not None:
+        lm_cfg = dataclasses.replace(lm_cfg, n_layers=RT_LM_LAYERS)
+    t["lm_cfg"], t["lm_model"] = lm_cfg, T.init(lm_cfg, 0, dev)
+    rng = np.random.default_rng(33)
+    t["prompts"] = [rng.integers(0, lm_cfg.vocab, int(k)) for k in
+                    rng.integers(RT_LM_LENS[0], RT_LM_LENS[1] + 1,
+                                 RT_LM_PROMPTS)]
+    return t
+
+
+def rt_engines(torch, dev, t, plans=None) -> dict:
+    """Fresh engines at full width; wrapped in ChaosEngines when `plans`
+    (name -> FaultPlan fields; a missing name gets the zero-rate plan)."""
+    from repro_torch import engine, runtime
+    from repro_torch.lm.paging import PagedConfig
+
+    engs = {"lvrf": engine.Engine(t["lvrf_spec"], slots=ENGINE_ROWS,
+                                  device=dev),
+            "nvsa": engine.Engine(t["nvsa_spec"], slots=ENGINE_ROWS,
+                                  device=dev),
+            "lm": runtime.LMEngine(
+                t["lm_cfg"], t["lm_model"], slots=RT_LM_SLOTS,
+                max_len=RT_LM_MAX_LEN, device=dev,
+                paged=PagedConfig(block_size=LM_BLOCK,
+                                  prefill_chunk=LM_CHUNK))}
+    if plans is None:
+        return engs
+    return {n: runtime.ChaosEngine(e, runtime.FaultPlan(**plans.get(n, {})))
+            for n, e in engs.items()}
+
+
+def rt_order(n_rows: int) -> list:
+    """LVRF submission order: wave c leads with junk row c (so junk holds
+    slots through the re-tune and the chaos plan's early steps), then its
+    share of the 512 decodable rows."""
+    per = n_rows // RT_WAVES
+    return [[n_rows + c] + list(range(c * per, (c + 1) * per))
+            for c in range(RT_WAVES)]
+
+
+def _outcome(r, gid):
+    """A future's result, or the exception it resolved to (a timeout is a
+    hang and fails the phase)."""
+    try:
+        return r.result(gid, timeout=RT_TIMEOUT_S)
+    except TimeoutError:
+        raise
+    except Exception as e:  # a structured fault; the caller checks its type
+        return e
+
+
+def rt_serve(torch, dev, t, engs, *, obs=None, failure=None,
+             deadline_probe=False) -> dict:
+    """One Runtime over the three engines (LVRF with a measured-cost re-tune
+    policy); every request submitted from this thread in interleaved waves;
+    returns each request's outcome by engine and index."""
+    from repro_torch import runtime
+
+    r = runtime.Runtime(obs=obs, failure=failure)
+    r.register("lvrf", engs["lvrf"], retune=runtime.RetunePolicy(
+        threshold=2.0, check_every=1, baseline_rps=1e-3,
+        candidates=(RT_RETUNE_TO,), use_measured_cost=True))
+    r.register("nvsa", engs["nvsa"])
+    r.register("lm", engs["lm"])
+    q, keys = t["lvrf_q"], t["lvrf_keys"]
+    gids = {"lvrf": {}, "nvsa": {}, "lm": {}}
+    per_n, per_p = RT_NVSA_TASKS // RT_WAVES, RT_LM_PROMPTS // RT_WAVES
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    with r:
+        for c, wave in enumerate(rt_order(len(t["vals"]))):
+            for i in wave:
+                gids["lvrf"][i] = r.submit("lvrf", q[i], keys=keys[i][None])
+            for k in range(c * per_n, (c + 1) * per_n):
+                gids["nvsa"][k] = r.submit(
+                    "nvsa", t["ctx"][k], keys=t["nvsa_keys"][8 * k:8 * k + 8],
+                    meta={"cand": t["cand"][k]})
+            for p in range(c * per_p, (c + 1) * per_p):
+                gids["lm"][p] = r.submit("lm", t["prompts"][p],
+                                         max_new_tokens=RT_LM_NEW)
+        dead = r.submit("lvrf", q[-1], deadline_s=0.0) \
+            if deadline_probe else None
+        out = {n: {i: _outcome(r, g) for i, g in gs.items()}
+               for n, gs in gids.items()}
+        dead = None if dead is None else _outcome(r, dead)
+        sync(torch, dev)
+        wall = time.perf_counter() - t0
+        stats = r.stats()
+    return {"out": out, "dead": dead, "wall": wall, "stats": stats,
+            "runtime": r}
+
+
+def lm_solo(torch, dev, cfg, model, prompt, steps):
+    """A solo greedy decode of `prompt` through ServeEngine (batch 1, the
+    kernel path) and its top-2 logit gap at every step, in bf16 ulps of the
+    top logit."""
+    import math
+
+    from repro_torch.launch.serve import ServeEngine
+    from repro_torch.lm.paging import PagedConfig
+
+    eng = ServeEngine(cfg, model, 1, RT_LM_MAX_LEN, device=dev,
+                      paged=PagedConfig(block_size=LM_BLOCK,
+                                        prefill_chunk=LM_CHUNK))
+    eng.add_request(0, prompt)
+    gaps = []
+    for _ in range(steps):
+        eng.step()
+        top = torch.topk(eng.last_logits[0].float(), 2).values.tolist()
+        ulp = 2.0 ** (math.floor(math.log2(abs(top[0]))) - 7)
+        gaps.append((top[0] - top[1]) / ulp)
+    return eng.generated[0][1:steps + 1], gaps
+
+
+def rt_check_lm(req, solo, what) -> int | None:
+    """Phase 13's greedy contract against a solo decode: equal tokens, or
+    the first differing token at a near tie (the solo run's top-2 gap at
+    most 2 x DEV_ULPS).  Returns the step where it parts, or None."""
+    toks, (want, gaps) = req.result["tokens"], solo
+    if len(toks) != RT_LM_NEW or req.result["truncated"]:
+        raise AssertionError(f"{what}: {len(toks)} tokens, truncated "
+                             f"{req.result['truncated']}")
+    for k, (a, b) in enumerate(zip(toks, want)):
+        if a != b:
+            if gaps[k] > 2 * DEV_ULPS:
+                raise AssertionError(
+                    f"{what}: token {k} is {a}, the solo decode's {b}, at a "
+                    f"top-2 gap of {gaps[k]:.1f} bf16 ulps > {2 * DEV_ULPS}")
+            return k
+    return None
+
+
+def rt_check(t, run, ref, what, *, clean=None) -> dict:
+    """The contracts of phase 24 on one run's outcomes: LVRF decodes right
+    and bitwise equal to a bare Engine (and to `clean`, when given, with
+    scores); junk unconverged at max_iters; NVSA answers, indices and
+    converged flags equal to a bare Engine, iterations on rows that settle
+    within FAST_SWEEPS; LM tokens by the greedy contract.  Exceptions are
+    skipped here (the caller decides which are allowed)."""
+    import numpy as np
+
+    n, max_it = len(t["vals"]), t["lvrf_spec"].cfg.max_iters
+    out = run["out"]
+    for i, req in out["lvrf"].items():
+        if isinstance(req, Exception):
+            continue
+        f, g = req.factorization, ref["lvrf"][i].factorization
+        if i >= n:
+            if bool(f.converged[0]) or int(f.iterations[0]) != max_it:
+                raise AssertionError(f"{what}: junk row {i - n} did not run "
+                                     f"to max_iters unconverged")
+            continue
+        if req.result["values"][0].tolist() != t["vals"][i].tolist():
+            raise AssertionError(f"{what}: LVRF row {i} decoded wrong")
+        fields = ("indices", "iterations", "converged")
+        for field in fields:
+            if not np.array_equal(getattr(f, field), getattr(g, field)):
+                raise AssertionError(f"{what}: LVRF row {i} {field} differs "
+                                     f"from the bare Engine's")
+        if clean is not None:
+            c = clean["out"]["lvrf"][i].factorization
+            for field in fields + ("scores",):
+                if not np.array_equal(getattr(f, field), getattr(c, field)):
+                    raise AssertionError(f"{what}: LVRF row {i} {field} "
+                                         f"differs from the clean run's")
+    for k, req in out["nvsa"].items():
+        if isinstance(req, Exception):
+            continue
+        g = ref["nvsa"][k]
+        if req.result["answer"] != g.result["answer"]:
+            raise AssertionError(f"{what}: NVSA task {k}'s answer differs "
+                                 "from the bare Engine's")
+        fast = g.iterations <= FAST_SWEEPS
+        if not (np.array_equal(req.factorization.indices,
+                               g.factorization.indices)
+                and np.array_equal(req.factorization.converged,
+                                   g.factorization.converged)
+                and np.array_equal(req.iterations[fast], g.iterations[fast])):
+            raise AssertionError(f"{what}: NVSA task {k} breaks the unitary "
+                                 "contract against the bare Engine")
+    parted = {}
+    for p, req in out["lm"].items():
+        if isinstance(req, Exception):
+            continue
+        parted[p] = rt_check_lm(req, ref["lm"][p], f"{what}: prompt {p}")
+        if clean is not None and \
+                req.result["tokens"] != clean["out"]["lm"][p].result["tokens"]:
+            raise AssertionError(f"{what}: prompt {p}'s tokens differ from "
+                                 "the clean run's")
+    return parted
+
+
+def rt_engine_line(rec) -> dict:
+    """Per engine, from the request spans: requests/s over the engine's
+    first submit to last result, and p50/p99 ms from submit to result."""
+    import numpy as np
+
+    spans: dict = {}
+    for sp in rec.spans.snapshot():
+        if sp.name == "request" and sp.t1 is not None:
+            spans.setdefault(sp.args["engine"], []).append(sp)
+    out = {}
+    for name, sps in sorted(spans.items()):
+        lat = np.array([sp.t1 - sp.t0 for sp in sps])
+        span = max(sp.t1 for sp in sps) - min(sp.t0 for sp in sps)
+        out[name] = {"requests": len(sps), "rps": len(sps) / span,
+                     "p50_ms": float(np.percentile(lat, 50) * 1e3),
+                     "p99_ms": float(np.percentile(lat, 99) * 1e3)}
+    return out
+
+
+def phase_runtime(torch, dev, rs, fd, card) -> dict:
+    """(a) mixed traffic, (b) chaos, (c) fleet control, (d) attribution."""
+    from repro_torch import engine, obs, runtime
+    from repro_torch.runtime import runtime as rt_mod
+
+    t_phase = time.perf_counter()
+
+    def since() -> str:
+        return f"[{time.perf_counter() - t_phase:.1f} s into phase 24]"
+
+    t = rt_traffic(torch, dev)
+    n = len(t["vals"])
+    lm_cfg = t["lm_cfg"]
+    print(f"phase 24: {n} LVRF rows + {RT_JUNK} junk, {RT_NVSA_TASKS} NVSA "
+          f"tasks, {RT_LM_PROMPTS} prompts for {lm_cfg.name} "
+          f"({lm_cfg.n_layers} layers, d {lm_cfg.d_model}, random bf16 "
+          f"weights) ready {since()}", flush=True)
+
+    # The references: bare engines and solo decodes, same keys.
+    bare = engine.Engine(t["lvrf_spec"], slots=ENGINE_ROWS, device=dev)
+    order = [i for wave in rt_order(n) for i in wave]
+    ids = {i: bare.submit(t["lvrf_q"][i], keys=t["lvrf_keys"][i][None])
+           for i in order}
+    done = {r.id: r for r in bare.drain()}
+    ref = {"lvrf": {i: done[ids[i]] for i in order}}
+    reqs, _, _ = _serve_nvsa(torch, engine, t["nvsa_spec"], t["ctx"],
+                             t["cand"], t["nvsa_keys"], dev)
+    ref["nvsa"] = dict(enumerate(reqs))
+    ref["lm"] = {p: lm_solo(torch, dev, lm_cfg, t["lm_model"], prompt,
+                            RT_LM_NEW)
+                 for p, prompt in enumerate(t["prompts"])}
+    print(f"phase 24: references (bare Engine(slots={ENGINE_ROWS}) for LVRF "
+          f"and NVSA, solo ServeEngine decodes) done {since()}", flush=True)
+
+    # (a) the main path: mixed traffic under one Runtime(obs=Recorder()).
+    measured = [0]  # launches of the re-tune's own sweep timings
+    inner = rt_mod.retune_slots
+
+    def counted(eng, *args, **kwargs):
+        before = rs.launches
+        try:
+            return inner(eng, *args, **kwargs)
+        finally:
+            measured[0] += rs.launches - before
+
+    rec = obs.Recorder()
+    engs = rt_engines(torch, dev, t)
+    rt_mod.retune_slots = counted
+    try:
+        rs.launches = fd.launches = 0  # the main path's run starts here
+        run = rt_serve(torch, dev, t, engs, obs=rec)
+        launches = {"resonator_step_batch": rs.launches,
+                    "flash_decode": fd.launches}  # ... and ends here
+    finally:
+        rt_mod.retune_slots = inner
+    errs = [(name, i, o) for name, d in run["out"].items()
+            for i, o in d.items() if isinstance(o, Exception)]
+    if errs:
+        raise AssertionError(f"(a): {len(errs)} futures failed: {errs[:3]}")
+    parted = rt_check(t, run, ref, "(a)")
+    st, lv, lm = run["stats"], engs["lvrf"], engs["lm"]
+    retunes = st["lvrf"]["telemetry"]["retunes"]
+    if retunes < 1 or lv.slots == ENGINE_ROWS:
+        raise AssertionError(f"(a): {retunes} re-tunes, LVRF slots "
+                             f"{lv.slots}")
+    if launches["resonator_step_batch"] != lv.sweeps_total + measured[0] \
+            or lv.sweeps_total == 0:
+        raise AssertionError(
+            f"(a): resonator_step_batch launches "
+            f"{launches['resonator_step_batch']} != the LVRF engine's "
+            f"sweeps_total {lv.sweeps_total} + the re-tune's timed sweeps "
+            f"{measured[0]}")
+    steps = lm.serve.decode_dispatches
+    if launches["flash_decode"] != lm_cfg.n_layers * steps or steps == 0:
+        raise AssertionError(f"(a): flash_decode launches "
+                             f"{launches['flash_decode']} != "
+                             f"{lm_cfg.n_layers} x {steps} decode steps")
+    diverged = {p: k for p, k in parted.items() if k is not None}
+    print(f"phase 24a: mixed traffic through one Runtime on {card}: "
+          f"{len(run['out']['lvrf'])} LVRF, {RT_NVSA_TASKS} NVSA and "
+          f"{RT_LM_PROMPTS} LM requests, all resolved in "
+          f"{run['wall'] * 1e3:.1f} ms; LVRF decodes right and bitwise equal "
+          f"to the bare Engine, junk unconverged at max_iters, NVSA answers "
+          f"equal (unitary contract), LM streams equal to solo decodes but "
+          f"{len(diverged)} parting at near ties {diverged}; re-tunes "
+          f"{retunes} (slots {ENGINE_ROWS} -> {lv.slots}, measured-cost: "
+          f"{measured[0]} timed sweeps); resonator_step_batch launches "
+          f"{launches['resonator_step_batch']} = sweeps_total "
+          f"{lv.sweeps_total} + {measured[0]}; flash_decode launches "
+          f"{launches['flash_decode']} = {lm_cfg.n_layers} x {steps} decode "
+          f"steps " + since(), flush=True)
+
+    # (b) chaos: the reference test's plans over fresh engines.
+    chaos_engs = rt_engines(torch, dev, t, RT_CHAOS)
+    fast = runtime.FailurePolicy(max_restarts=50, backoff_initial_s=0.01,
+                                 backoff_max_s=0.05, health_check_every=1)
+    chaos = rt_serve(torch, dev, t, chaos_engs, failure=fast,
+                     deadline_probe=True)
+    outs = [o for d in chaos["out"].values() for o in d.values()]
+    unstructured = [o for o in outs if isinstance(o, Exception)
+                    and not isinstance(o, runtime.FaultError)]
+    if unstructured:
+        raise AssertionError(f"(b): unstructured failures {unstructured[:3]}")
+    if not isinstance(chaos["dead"], runtime.DeadlineExceededError):
+        raise AssertionError(f"(b): the deadline_s=0 request gave "
+                             f"{chaos['dead']!r}")
+    st = chaos["stats"]
+    states = {name: st[name]["supervision"]["state"] for name in chaos_engs}
+    injected = {name: dict(e.injected) for name, e in chaos_engs.items()}
+    recoveries = {name: st[name]["telemetry"]["recoveries"]
+                  for name in chaos_engs}
+    caught = sum(tag == "fault fault"
+                 for _, tag in st["lvrf"]["supervision"]["events"])
+    if set(states.values()) != {"serving"}:
+        raise AssertionError(f"(b): engine states {states}")
+    if not sum(sum(v.values()) for v in injected.values()) or \
+            not sum(recoveries.values()):
+        raise AssertionError(f"(b): injected {injected}, recoveries "
+                             f"{recoveries}")
+    if not injected["lvrf"]["corrupt"] or not caught:
+        raise AssertionError(f"(b): corruptions {injected['lvrf']['corrupt']}"
+                             f", caught by the health check {caught}")
+    rejected = sum(isinstance(o, runtime.InjectedFault)
+                   for o in chaos["out"]["lm"].values())
+    if rejected != injected["lm"]["submit_reject"]:
+        raise AssertionError(f"(b): {rejected} LM futures rejected, "
+                             f"{injected['lm']['submit_reject']} injected")
+    failed = sum(isinstance(o, Exception) for o in outs)
+    rt_check(t, chaos, ref, "(b)")
+    print(f"phase 24b: chaos (seeds 101/202/303, FailurePolicy(backoff "
+          f"0.01-0.05 s, health check every step)) on {card}: every future "
+          f"resolved, {failed} to structured faults ({rejected} LM submit "
+          f"rejections) plus the deadline_s=0 request's "
+          f"DeadlineExceededError; injected {injected}; recoveries "
+          f"{recoveries}; {caught} NaN state corruption(s) caught by "
+          f"health_check on the card; every engine serving; survivors meet "
+          f"(a)'s contracts; wall {chaos['wall'] * 1e3:.1f} ms " + since(),
+          flush=True)
+    zero = rt_serve(torch, dev, t, rt_engines(torch, dev, t, {}))
+    errs = [o for d in zero["out"].values() for o in d.values()
+            if isinstance(o, Exception)]
+    if errs:
+        raise AssertionError(f"(b): zero-rate run failed {errs[:3]}")
+    rt_check(t, zero, ref, "(b) zero-rate", clean=run)
+    print(f"phase 24b: the same traffic through zero-rate ChaosEngines: "
+          f"LVRF rows bitwise equal to (a) (indices, iterations, converged, "
+          f"scores), LM tokens equal to (a)'s " + since(), flush=True)
+
+    over = rt_fleet(torch, dev, t, card)
+
+    # (d) attribution over (a)'s spans.
+    rep = obs.attribution(rec)
+    low = [r for r in rep["requests"] if r["coverage"] < RT_COVERAGE]
+    if low:
+        raise AssertionError(
+            f"(d): {len(low)} requests' buckets cover < {RT_COVERAGE} of "
+            f"their wall, e.g. {low[0]}")
+    lines = rt_engine_line(rec)
+    buckets = ("queue_wait", "fill", "sweep_burst", "decode_burst", "retire",
+               "cross_engine", "dispatch", "ingest", "step_other", "retune",
+               "other")
+    for name, line in lines.items():
+        rows = [r for r in rep["requests"] if r["engine"] == name]
+        tot = {b: sum(r["queue_wait_s"] if b == "queue_wait"
+                      else r["phases"].get(b, 0.0) for r in rows)
+               for b in buckets}
+        line["buckets_s"] = tot
+        print(f"phase 24d: {name} on {card}: {line['requests']} requests, "
+              f"{line['rps']:.1f} requests/s, p50 {line['p50_ms']:.2f} ms, "
+              f"p99 {line['p99_ms']:.2f} ms submit to result; summed over "
+              f"its requests (s): " + ", ".join(
+                  f"{b} {v:.4f}" for b, v in tot.items()), flush=True)
+    trace = ROOT / "chiprun_out" / "runtime_trace.json"
+    trace.parent.mkdir(exist_ok=True)
+    rec.write_chrome_trace(str(trace))
+    print(f"phase 24d: attribution coverage min "
+          f"{rep['coverage']['min']:.4f}, mean {rep['coverage']['mean']:.4f}"
+          f" over {rep['coverage']['requests']} requests (>= {RT_COVERAGE} "
+          f"each); Chrome trace in {trace.relative_to(ROOT)} " + since(),
+          flush=True)
+    del t, engs, chaos_engs
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"launches": launches, "measured": measured[0], "fleet": over,
+            "engines": lines, "wall_ms": run["wall"] * 1e3}
+
+
+def rt_fleet(torch, dev, t, card) -> dict:
+    """(c) A short overload of the LVRF engine: RT_OVER_JUNK best-effort
+    Gaussian rows fill every slot twice over, then RT_OVER_GOOD interactive
+    rows arrive; under a FleetController (priority fill, preemption) and as
+    a FIFO baseline, against an SLO target of 30 measured warm steps."""
+    import numpy as np
+
+    from repro_torch import engine, obs, runtime
+    from repro_torch.core import factorizer as fz
+
+    rng = np.random.default_rng(61)
+    junk = torch.from_numpy(rng.normal(size=(RT_OVER_JUNK, D))
+                            .astype(np.float32)).to(dev)
+    good = t["lvrf_q"][:RT_OVER_GOOD]
+    jkeys, gkeys = fz.draw_keys(61, RT_OVER_JUNK), t["lvrf_keys"]
+    # The target, as tests/test_fleet.py:539 sets it: 30 warm steps + 8 ms.
+    # A step is timed at this shape's load: a full wave of best-effort rows
+    # drained through a warm engine (at 256 slots the host's per-request
+    # fill and retire work, not the sweep, sets a loaded step's time).
+    eng = engine.Engine(t["lvrf_spec"], slots=ENGINE_ROWS, device=dev)
+    eng.submit(junk[0], keys=jkeys[0][None])
+    eng.drain()  # warm
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    for i in range(ENGINE_ROWS):
+        eng.submit(junk[i], keys=jkeys[i][None])
+    steps0 = eng.steps_total
+    eng.drain()
+    sync(torch, dev)
+    t_step = (time.perf_counter() - t0) / max(1, eng.steps_total - steps0)
+    target = 30.0 * t_step + 0.008
+
+    def overload(fleet):
+        e = engine.Engine(t["lvrf_spec"], slots=ENGINE_ROWS, device=dev)
+        r = runtime.Runtime(slo={"interactive": obs.SLOTarget(target),
+                                 "best_effort": obs.SLOTarget(target)},
+                            fleet=fleet)
+        r.register("lvrf", e)
+        with r:
+            jids = [r.submit("lvrf", junk[i], keys=jkeys[i][None],
+                             class_="best_effort")
+                    for i in range(RT_OVER_JUNK)]
+            deadline = time.monotonic() + RT_TIMEOUT_S
+            while time.monotonic() < deadline:
+                live = sum(v["rows"] for v in e.live_requests().values())
+                if live == ENGINE_ROWS and e.in_flight == RT_OVER_JUNK:
+                    break
+                time.sleep(0.0005)
+            else:
+                raise AssertionError("(c): best-effort rows never held the "
+                                     "engine")
+            steps0, t_burst = e.steps_total, time.perf_counter()
+            gids = [r.submit("lvrf", good[i], keys=gkeys[i][None],
+                             class_="interactive")
+                    for i in range(RT_OVER_GOOD)]
+            t_burst = time.perf_counter() - t_burst
+            gouts = [_outcome(r, g) for g in gids]
+            steps = e.steps_total - steps0
+            outs = [_outcome(r, g) for g in jids] + gouts
+            snap = r.stats()
+        bad = [o for o in outs if isinstance(o, Exception)
+               and not isinstance(o, runtime.FaultError)]
+        if bad:
+            raise AssertionError(f"(c): unstructured failures {bad[:3]}")
+        for i, o in enumerate(outs[RT_OVER_JUNK:]):
+            res = o.result.result if isinstance(o.result,
+                                                runtime.DegradedResult) \
+                else o.result
+            if res["values"][0].tolist() != t["vals"][i].tolist():
+                raise AssertionError(f"(c): interactive row {i} decoded "
+                                     "wrong")
+        snap["burst_ms"], snap["steps"] = t_burst * 1e3, steps
+        return snap
+
+    pol = runtime.FleetPolicy(classes=(
+        runtime.PriorityClass("interactive", priority=0),
+        runtime.PriorityClass("best_effort", priority=3, preemptible=True)),
+        default_class="best_effort", max_preempt_per_tick=RT_OVER_GOOD,
+        rebalance_every=0)
+    snap_p, snap_b = overload(pol), overload(None)
+    att_p = snap_p["slo"]["interactive"]["attainment"]
+    att_b = snap_b["slo"]["interactive"]["attainment"]
+    pre = sum(snap_p["fleet"]["preempted_rows"].values())
+    print(f"phase 24c: overload of the LVRF engine on {card}: "
+          f"{RT_OVER_JUNK} best-effort rows to max_iters, then "
+          f"{RT_OVER_GOOD} interactive rows; SLO target {target * 1e3:.2f} ms"
+          f" (30 warm steps of {t_step * 1e3:.3f} ms at {ENGINE_ROWS} live "
+          f"rows + 8 ms); interactive "
+          f"attainment {att_p} under the FleetController ({pre} rows "
+          f"preempted), {att_b} as FIFO; " + "; ".join(
+              f"{tag}: interactive p50/p99 "
+              f"{sn['slo']['interactive']['latency_p50_s'] * 1e3:.2f}/"
+              f"{sn['slo']['interactive']['latency_p99_s'] * 1e3:.2f} ms, "
+              f"their {RT_OVER_GOOD} submits took {sn['burst_ms']:.2f} ms on "
+              f"this thread, {sn['steps']} engine steps until the last "
+              f"interactive result"
+              for tag, sn in (("policy", snap_p), ("FIFO", snap_b))),
+          flush=True)
+    if att_p is None or att_p < 0.9 or pre == 0:
+        raise AssertionError(f"(c): interactive attainment {att_p} under the "
+                             f"policy (needs >= 0.9), {pre} preempted rows")
+    return {"attainment": att_p, "fifo_attainment": att_b,
+            "target_ms": target * 1e3, "preempted": pre}
+
+
 def main() -> int:
     import torch
 
@@ -2415,6 +3005,7 @@ def main() -> int:
     cc_times = phase_circconv_timing(torch, dev, cc, card)
     nvsa_kernel = phase_nvsa_kernel(torch, dev, rs, ref, card)
     nvsa_run = phase_nvsa(torch, dev, rs, card)
+    rt_run = phase_runtime(torch, dev, rs, fd, card)
 
     src = "src/repro_torch/kernels/resonator_step/csrc/resonator_step.cu"
     kernels = [
@@ -2422,7 +3013,9 @@ def main() -> int:
          "replaces": "src/repro/kernels/resonator_step/kernel.py:153",
          "launches": dense_launches,
          "max_abs_err": err["resonator_step_batch"],
-         **times["resonator_step_batch"], "library_ms": None},
+         **times["resonator_step_batch"], "library_ms": None,
+         "runtime_launches": rt_run["launches"]["resonator_step_batch"],
+         "runtime_timed_sweeps": rt_run["measured"]},
         {"name": "resonator_step_batch_masked", "route": "cuda",
          "source": src,
          "replaces": "src/repro/kernels/resonator_step/kernel.py:184",
@@ -2448,7 +3041,9 @@ def main() -> int:
          "source": "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu",
          "replaces": "src/repro/kernels/flash_decode/kernel.py:87",
          "launches": fd_launches[kv], "max_abs_err": fd_err[kv],
-         **fd_times[kv]}
+         **fd_times[kv],
+         **({"runtime_launches": rt_run["launches"]["flash_decode"]}
+            if kv == "bf16" else {})}
         for kv in ("bf16", "int8")
     ] + [
         {"name": "circconv_rows", "route": "cuda",

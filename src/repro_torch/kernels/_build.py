@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 KERNELS_DIR = Path(__file__).resolve().parent
@@ -22,6 +23,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _loaded: dict = {}  # kernel name -> ctypes.CDLL, one load per process
+# Guards _loaded and the builds: the runtime's stepper thread may reach a
+# kernel's first use while another thread does, and two nvcc runs of one
+# process would write the same temporary file.
+_lock = threading.RLock()
 
 
 def sources() -> dict:
@@ -53,33 +58,40 @@ def build_all(names=None) -> dict:
     missing = set(names) - set(srcs)
     if missing:
         raise KeyError(f"no kernel source for {sorted(missing)}")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out, running = {}, []
-    for name in names:
-        lib = _target(srcs[name])
-        out[name] = lib
-        if not lib.exists():
-            tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(srcs[name])]
-            running.append((name, lib, tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
-    failures = []
-    for name, lib, tmp, proc in running:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failures.append(f"--- {name} (nvcc exit {proc.returncode}) ---\n"
-                            f"{log}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, lib)  # atomic: a reader never sees a half file
-    if failures:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
-    return out
+    with _lock:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        out, running = {}, []
+        for name in names:
+            lib = _target(srcs[name])
+            out[name] = lib
+            if not lib.exists():
+                tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+                cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                       str(srcs[name])]
+                running.append((name, lib, tmp, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
+        failures = []
+        for name, lib, tmp, proc in running:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failures.append(f"--- {name} (nvcc exit "
+                                f"{proc.returncode}) ---\n{log}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, lib)  # atomic: no reader sees half a file
+        if failures:
+            raise RuntimeError("CUDA kernel build failed:\n"
+                               + "\n".join(failures))
+        return out
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
-    if name not in _loaded:
-        _loaded[name] = ctypes.CDLL(str(build_all([name])[name]))
-    return _loaded[name]
+    lib = _loaded.get(name)
+    if lib is None:
+        with _lock:
+            if name not in _loaded:
+                _loaded[name] = ctypes.CDLL(str(build_all([name])[name]))
+            lib = _loaded[name]
+    return lib

@@ -908,3 +908,121 @@ def test_bipolar_fused_nvsa_engine_on_the_card_matches_the_cpu(cuda):
         assert g.result["answer"] == w.result["answer"]
         np.testing.assert_allclose(g.result["sims"], w.result["sims"],
                                    atol=1e-5, rtol=0)
+
+
+# -- the supervised runtime: a stepper thread drives the card ----------------
+
+def _lvrf_on(dev, n_good=24, n_junk=2, seed=3):
+    from repro_torch import engine
+    from repro_torch.device import generator
+    from repro_torch.models import lvrf
+
+    cfg = lvrf.LVRFConfig()
+    atoms = lvrf.init_atoms(generator(0), cfg, device=dev)
+    spec = engine.registry.build("lvrf_rows", 0, fused_step=True, atoms=atoms,
+                                 device=dev)
+    rng = np.random.default_rng(seed)
+    vals = rng.integers(0, cfg.n_values, (n_good, 3))
+    junk = torch.from_numpy(rng.normal(size=(n_junk, cfg.vsa.dim))
+                            .astype(np.float32)).to(dev)
+    qs = torch.cat([lvrf.encode_row(atoms, vals, cfg), junk])
+    return spec, qs, fz.draw_keys(seed, len(qs)), vals
+
+
+@pytest.mark.cuda
+def test_runtime_stepper_launches_are_counted(cuda):
+    """Every sweep the runtime's stepper thread runs on the card launches the
+    fused kernel once, and the wrapper's count sees each launch."""
+    from repro_torch import engine, runtime as rt
+
+    spec, qs, keys, vals = _lvrf_on(cuda)
+    eng = engine.Engine(spec, slots=16, device=cuda)
+    r = rt.Runtime()
+    r.register("lvrf", eng)
+    before = ops.launches
+    with r:
+        gids = [r.submit("lvrf", qs[i], keys=keys[i][None])
+                for i in range(len(qs))]
+        reqs = [r.result(g, timeout=120) for g in gids]
+    assert ops.launches - before == eng.sweeps_total > 0
+    # the +-1 rows against the same engine on the CPU, bit for bit
+    cpu = engine.Engine(spec, slots=16, device="cpu")
+    ids = [cpu.submit(qs[i].cpu(), keys=keys[i][None])
+           for i in range(len(vals))]
+    want = {q.id: q for q in cpu.drain()}
+    for i, rid in enumerate(ids):
+        a, b = reqs[i].factorization, want[rid].factorization
+        for name in ("indices", "iterations", "converged", "scores"):
+            np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+        if a.converged[0]:
+            assert reqs[i].result["values"][0].tolist() == vals[i].tolist()
+
+
+@pytest.mark.cuda
+def test_runtime_catches_a_nan_in_cuda_state_and_replays_bitwise(cuda):
+    """The chaos harness's NaN poke into the card's resonator state is caught
+    by the health check and replayed: decodes bitwise equal to a
+    fault-free run with the same keys."""
+    from repro_torch import engine, runtime as rt
+
+    spec, qs, keys, _ = _lvrf_on(cuda, n_good=12, n_junk=4)
+
+    def run(plan):
+        chaos = rt.ChaosEngine(engine.Engine(spec, slots=8, device=cuda),
+                               plan)
+        r = rt.Runtime(failure=rt.FailurePolicy(
+            max_restarts=50, backoff_initial_s=0.01, backoff_max_s=0.05,
+            health_check_every=1))
+        r.register("lvrf", chaos)
+        with r:
+            gids = [r.submit("lvrf", qs[i], keys=keys[i][None])
+                    for i in range(len(qs))]
+            out = [r.result(g, timeout=120) for g in gids]
+        return out, chaos, r
+
+    got, chaos, r = run(rt.FaultPlan(seed=5, corrupt_rate=1.0, max_faults=2))
+    want, _, _ = run(rt.FaultPlan(seed=5))
+    assert chaos.injected["corrupt"] == 2
+    assert chaos.inner.state.est.device.type == "cuda"
+    tags = [t for _, t in r.stats()["lvrf"]["supervision"]["events"]]
+    assert tags.count("fault fault") >= 1
+    for a, b in zip(got, want):
+        for name in ("indices", "iterations", "converged", "scores"):
+            np.testing.assert_array_equal(getattr(a.factorization, name),
+                                          getattr(b.factorization, name))
+
+
+@pytest.mark.cuda
+def test_measured_retune_times_the_card_from_the_stepper_thread(cuda,
+                                                                monkeypatch):
+    """A measured-cost re-tune runs measure_sweep_seconds on the stepper
+    thread, on the card: a positive time per candidate and a resize."""
+    import threading
+
+    from repro_torch import engine, runtime as rt
+    from repro_torch.engine.sharding import autotune
+
+    spec, qs, keys, _ = _lvrf_on(cuda, n_good=16, n_junk=2)
+    seen = []
+    orig = autotune.measure_sweep_seconds
+
+    def spy(spec_, n, **kw):
+        t = orig(spec_, n, **kw)
+        seen.append((threading.current_thread().name, kw.get("device"), t))
+        return t
+
+    monkeypatch.setattr(autotune, "measure_sweep_seconds", spy)
+    eng = engine.Engine(spec, slots=8, sweeps_per_step=2, device=cuda)
+    r = rt.Runtime()
+    r.register("lvrf", eng, retune=rt.RetunePolicy(
+        threshold=2.0, check_every=1, baseline_rps=1e-3, candidates=(16,),
+        use_measured_cost=True))
+    with r:
+        gids = [r.submit("lvrf", qs[i], keys=keys[i][None])
+                for i in range(len(qs))]
+        for g in gids:
+            r.result(g, timeout=120)
+    assert r.telemetry["lvrf"].retunes >= 1 and eng.slots == 16
+    assert seen and all(name == "repro-runtime-stepper" and t > 0
+                        and torch.device(d).type == "cuda"
+                        for name, d, t in seen)

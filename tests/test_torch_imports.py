@@ -36,11 +36,13 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 69  # every package and module of the port, the LM
+    assert int(count) >= 76  # every package and module of the port, the LM
     # serving slice's (nn, configs, lm, launch, runtime, flash_decode), the
     # sharded engine's (launch.mesh, engine.sharding), MIMONet's
-    # (kernels.circconv, models.mimonet, core.superposition) and NVSA's
-    # (core.symbolic, models.cnn, models.nvsa, engine.build) included
+    # (kernels.circconv, models.mimonet, core.superposition), NVSA's
+    # (core.symbolic, models.cnn, models.nvsa, engine.build) and the
+    # supervised runtime's (runtime.{protocol,telemetry,faults,fleet,
+    # runtime}, obs.{slo,report}) included
     assert bad == "[]"
 
 
@@ -56,7 +58,7 @@ def _imported(path: Path) -> set:
 
 def test_no_source_of_the_port_imports_jax_or_the_reference():
     files = sorted(PORT.rglob("*.py")) + [CHIP_SMOKE]
-    assert len(files) >= 71
+    assert len(files) >= 78
     names = {p.relative_to(PORT).as_posix() for p in files[:-1]}
     assert {"nn/layers.py", "nn/transformer.py", "lm/model.py",
             "lm/paging.py", "lm/sampling.py", "launch/serve.py",
@@ -68,7 +70,9 @@ def test_no_source_of_the_port_imports_jax_or_the_reference():
             "kernels/circconv/kernel.py", "kernels/circconv/ref.py",
             "models/mimonet.py", "core/superposition.py",
             "core/symbolic.py", "models/cnn.py", "models/nvsa.py",
-            "engine/build.py", "data/raven.py"} <= names
+            "engine/build.py", "data/raven.py", "runtime/protocol.py",
+            "runtime/telemetry.py", "runtime/faults.py", "runtime/fleet.py",
+            "runtime/runtime.py", "obs/slo.py", "obs/report.py"} <= names
     for path in files:
         for name in _imported(path):
             top = name.split(".")[0]
