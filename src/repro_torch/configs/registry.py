@@ -1,7 +1,7 @@
 """Arch registry: ``--arch <id>`` resolution for ``launch/`` and the tests.
 
 The port holds the architectures whose every block it can run; the others
-wait for ROADMAP Queue A item 5 (``nn/moe.py``, ``nn/mamba.py``,
+wait for ROADMAP Queue A item 2 (``nn/moe.py``, ``nn/mamba.py``,
 ``nn/xlstm.py``, M-RoPE, the encoder) and are not listed here.
 """
 from repro_torch.configs import llama3_2_3b
@@ -13,5 +13,5 @@ def get(arch_id: str):
     if arch_id not in ARCHS:
         raise KeyError(f"unknown arch {arch_id!r}; the port has "
                        f"{sorted(ARCHS)} (the reference's other archs wait "
-                       "for ROADMAP Queue A item 5)")
+                       "for ROADMAP Queue A item 2)")
     return ARCHS[arch_id]

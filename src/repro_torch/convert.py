@@ -2,7 +2,10 @@
 
 The reference's parameters and codebooks, brought to the host with
 ``np.asarray``, become tensors on ``device``; the tests use this to drive
-both packages with the same codebooks.  Nothing here imports the reference.
+both packages with the same codebooks.  The ``*_to_reference`` functions go
+the other way, so that gradients can be compared leaf by leaf and a
+frontend the port trained can be scored by the reference.  Nothing here
+imports the reference.
 """
 from __future__ import annotations
 
@@ -121,3 +124,33 @@ def cnn_params_from_reference(np_params: dict, device=DEFAULT_DEVICE):
             a = a.transpose(3, 2, 0, 1)  # [kh, kw, in, out] -> [out, in, kh, kw]
         out[k] = from_numpy(np.ascontiguousarray(a), device)
     return CNN(out)
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def cnn_params_to_reference(model_or_params) -> dict:
+    """The port's CNN (a :class:`repro_torch.models.cnn.CNN`, or a dict of
+    tensors under its names, such as its gradients) as the reference's
+    ``cnn.init`` dict of float32 numpy arrays: OIHW convolution weights
+    transposed back to HWIO, every other leaf as it is.  The inverse of
+    :func:`cnn_params_from_reference`."""
+    items = (model_or_params.items() if isinstance(model_or_params, dict)
+             else model_or_params.named_parameters())
+    out = {}
+    for k, v in items:
+        a = _host(v)
+        if k.startswith("conv") and k.endswith("_w"):
+            a = a.transpose(2, 3, 1, 0)  # [out, in, kh, kw] -> [kh, kw, in, out]
+        out[k] = np.ascontiguousarray(a)
+    return out
+
+
+def mimonet_params_to_reference(model_or_params) -> dict:
+    """The port's MIMONet (or a dict of tensors under its names) as the
+    reference's ``mimonet.init`` dict of float32 numpy arrays; the layouts
+    are the same.  The inverse of :func:`mimonet_params_from_reference`."""
+    items = (model_or_params.items() if isinstance(model_or_params, dict)
+             else model_or_params.named_parameters())
+    return {k: _host(v) for k, v in items}

@@ -55,4 +55,4 @@ def mimo_lm_logits(params, cfg, tokens, keys, blocks: int = 8,
     forward, which the port does not have yet."""
     raise NotImplementedError(
         "mimo_lm_logits runs the full-sequence transformer forward, which "
-        "the port lacks (ROADMAP Queue A item 1b)")
+        "the port lacks (ROADMAP Queue A item 2)")

@@ -67,6 +67,16 @@ class VSAConfig:
 # Random hypervectors
 # ---------------------------------------------------------------------------
 
+def random_normal(generator, shape, cfg: VSAConfig,
+                  dtype=torch.float32, device=DEFAULT_DEVICE) -> torch.Tensor:
+    """I.i.d. Gaussian hypervectors scaled to unit expected squared norm
+    (``randn / sqrt(D)``)."""
+    dev = resolve(device)
+    full = tuple(shape) + (cfg.dim,)
+    x = torch.randn(full, generator=as_generator(generator), dtype=dtype)
+    return (x / math.sqrt(cfg.dim)).to(dev)
+
+
 def random_bipolar(generator, shape, cfg: VSAConfig,
                    dtype=torch.float32, device=DEFAULT_DEVICE) -> torch.Tensor:
     """Dense bipolar (+-1) hypervectors (MAP algebra; NVSA-style codebooks).

@@ -17,6 +17,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.circconv import kernel as _k
 from repro_torch.kernels.circconv import ref as _ref
 
@@ -39,7 +40,10 @@ def block_circconv(xb: torch.Tensor, yb: torch.Tensor) -> torch.Tensor:
     to float32 first.  The rows kernel reads the broadcast operands as
     views (stride 0 where broadcast); they are copied only where their
     strides do not collapse into the kernel's dims or L is not unit-stride.
+    Under autograd with an operand that requires grad it raises
+    (:func:`repro_torch.kernels.refuse_grad`).
     """
+    refuse_grad("block_circconv", xb, yb)
     shape = torch.broadcast_shapes(xb.shape, yb.shape)
     L = shape[-1]
     dtype = xb.dtype

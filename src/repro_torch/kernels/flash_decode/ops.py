@@ -5,7 +5,10 @@ version (:func:`.ref.flash_decode_plain`), a CUDA tensor to the
 hand-written kernel (:mod:`.kernel`), which launches or raises.  There is
 no third path and no fallback.  ``use_flash=False`` is the reference's own
 explicit choice of the dense gathered path (:func:`.ref.flash_decode_ref`),
-on any device; it is never taken on a failure.
+on any device; it is never taken on a failure.  Under autograd with an
+operand that requires grad the flash path raises
+(:func:`repro_torch.kernels.refuse_grad`); the dense path, which the
+reference differentiates, does not.
 
 Counters (plain integers): ``launches`` counts the kernel's launches
 (bumped by :mod:`.kernel`), ``plain_calls`` the plain version's calls on
@@ -14,6 +17,7 @@ as a card run counts launches.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.flash_decode import kernel as _k
 from repro_torch.kernels.flash_decode import ref as _ref
 
@@ -33,6 +37,7 @@ def flash_decode(q, pool: dict, table, kv_lens, *, use_flash: bool = True):
     if not use_flash:
         return _ref.flash_decode_ref(q, pool["k"], pool["v"], table, kv_lens,
                                      ks, vs)
+    refuse_grad("flash_decode", q, *pool.values())
     if q.device.type == "cpu":
         plain_calls += 1
         return _ref.flash_decode_plain(q, pool["k"], pool["v"], table,

@@ -2,7 +2,9 @@
 
 A tensor on the CPU goes to the plain version (:mod:`.ref`); a CUDA tensor
 goes to the hand-written kernel (:mod:`.kernel`), which launches or raises.
-There is no third path and no fallback.
+There is no third path and no fallback.  Under autograd with an operand
+that requires grad every entry point raises
+(:func:`repro_torch.kernels.refuse_grad`).
 
 ``launches``, ``masked_launches`` and ``local_launches`` count the kernel
 launches of the dense, the masked and the model-shard wrapper (plain
@@ -13,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.resonator_step import kernel as _k
 from repro_torch.kernels.resonator_step import ref as _ref
 
@@ -53,6 +56,7 @@ def fused_resonator_step_batch(qs, est, codebooks, activation: str = "identity",
     qs: [N, D]; est: [N, F, D] -> (alpha [N, F, M], new_est [N, F, D]).
     """
     f = _cfg(fused)
+    refuse_grad("fused_resonator_step_batch", qs, est, codebooks)
     if qs.device.type == "cpu":
         return _ref.resonator_step_batch_ref(qs, est, codebooks, activation)
     return _k.resonator_step_batch(qs, est, codebooks, activation=activation,
@@ -66,6 +70,7 @@ def fused_resonator_step_batch_masked(qs, est, codebooks, valid_mask,
     activation and zeroed before the projection — bit-comparable to the
     masked two-pass path."""
     f = _cfg(fused)
+    refuse_grad("fused_resonator_step_batch_masked", qs, est, codebooks)
     if qs.device.type == "cpu":
         return _ref.resonator_step_batch_masked_ref(qs, est, codebooks,
                                                     valid_mask, activation)
@@ -82,6 +87,7 @@ def fused_resonator_step_batch_local(qs, est, cb_local, valid_mask_local=None,
     reduction per factor (see ``core/factorizer.py``, model-sharded
     mode)."""
     f = _cfg(fused)
+    refuse_grad("fused_resonator_step_batch_local", qs, est, cb_local)
     if qs.device.type == "cpu":
         return _ref.resonator_step_batch_local_ref(qs, est, cb_local,
                                                    valid_mask_local, activation)
@@ -91,6 +97,7 @@ def fused_resonator_step_batch_local(qs, est, cb_local, valid_mask_local=None,
 
 def fused_resonator_step(q, est, codebooks, activation: str = "identity"):
     """One fused Jacobi resonator sweep for a single query (bipolar algebra)."""
+    refuse_grad("fused_resonator_step", q, est, codebooks)
     if q.device.type == "cpu":
         return _ref.resonator_step_ref(q, est, codebooks, activation)
     return _k.resonator_step(q, est, codebooks, activation=activation)

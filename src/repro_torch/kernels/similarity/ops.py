@@ -2,7 +2,8 @@
 
 A tensor on the CPU goes to the plain version (:mod:`.ref`); a CUDA tensor
 goes to the hand-written kernel (:mod:`.kernel`), which launches or raises.
-There is no third path and no fallback.
+There is no third path and no fallback.  Under autograd with an operand
+that requires grad it raises (:func:`repro_torch.kernels.refuse_grad`).
 
 ``launches`` counts the kernel's launches (a plain integer, bumped by
 :mod:`.kernel` once per launch), so a run can show that its int8 scores
@@ -13,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.quantization import QTensor
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.similarity import kernel as _k
 from repro_torch.kernels.similarity import ref as _ref
 
@@ -21,6 +23,7 @@ launches = 0  # kernel launches in this process
 
 def codebook_scores(q: torch.Tensor, codebook: QTensor) -> torch.Tensor:
     """Scores [..., M] of queries [..., D] against an int8 codebook [M, D]."""
+    refuse_grad("codebook_scores", q, codebook.values, codebook.scale)
     lead = q.shape[:-1]
     q2 = q.reshape(-1, q.shape[-1])
     if q2.device.type == "cpu":

@@ -35,8 +35,9 @@ class CNNConfig:
 
 
 class CNN(nn.Module):
-    """Frozen parameters under the reference's names: ``conv{i}_w`` [c_out,
-    c_in, k, k] (OIHW) / ``conv{i}_b``, ``head_h_w`` [C, hidden] /
+    """Parameters under the reference's names, frozen as built (a trainer
+    calls ``requires_grad_(True)``, then freezes it again): ``conv{i}_w``
+    [c_out, c_in, k, k] (OIHW) / ``conv{i}_b``, ``head_h_w`` [C, hidden] /
     ``head_h_b``, ``head_vsa_w`` [hidden, D] / ``head_vsa_b``,
     ``head_attr{a}_w`` [C, n_a] / ``head_attr{a}_b``."""
 

@@ -8,8 +8,11 @@ graceful accuracy cost.  With ``VSAConfig(impl="pallas")`` every bind and
 unbind is one launch of the hand-written circular convolution kernel on the
 card (``kernels/circconv``).
 
-Forward only: training (the reference's ``train/optimizer.py`` and the
-example's step) is not ported yet (ROADMAP Queue A).
+The model is built frozen, for serving.  Training
+(``examples/torch_mimonet_superposition.py::train_eval``) calls
+``requires_grad_(True)`` on it, every leaf the stream keys included, as the
+reference's gradient covers every leaf, and binds through ``impl="fft"``:
+the circconv kernel has no gradient (it raises under autograd).
 """
 from __future__ import annotations
 
@@ -36,9 +39,10 @@ class MIMONetConfig:
 
 
 class MIMONet(nn.Module):
-    """Frozen parameters under the reference's names: ``stream_keys`` [S, D],
-    ``embed_w`` [img^2, D] / ``embed_b``, ``mlp{i}_w`` / ``mlp{i}_b``,
-    ``out_w`` [h, D] / ``out_b``, ``head{a}_w`` [D, n_a] / ``head{a}_b``."""
+    """Parameters under the reference's names, frozen as built:
+    ``stream_keys`` [S, D], ``embed_w`` [img^2, D] / ``embed_b``,
+    ``mlp{i}_w`` / ``mlp{i}_b``, ``out_w`` [h, D] / ``out_b``, ``head{a}_w``
+    [D, n_a] / ``head{a}_b``."""
 
     def __init__(self, params: dict):
         super().__init__()

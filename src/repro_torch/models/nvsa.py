@@ -72,11 +72,26 @@ def target_query(codebooks: torch.Tensor, attrs, cfg: NVSAConfig) -> torch.Tenso
     return fz.bind_combo(codebooks, attrs, cfg.vsa)
 
 
-def frontend_loss(params, batch, codebooks, cfg: NVSAConfig):
-    """Training the frontend is not ported yet (ROADMAP Queue A item 6)."""
-    raise NotImplementedError(
-        "nvsa.frontend_loss (frontend training) is not ported yet: ROADMAP "
-        "Queue A item 6")
+def frontend_loss(model: cnn.CNN, batch: dict, codebooks, cfg: NVSAConfig):
+    """Cosine regression to the target query vector + auxiliary attr CE.
+
+    batch: ``images`` [N, H, W] and integer labels ``type`` / ``size`` /
+    ``color`` [N] (tensors on the model's device).  Returns ``(loss,
+    {"cosine", "aux_ce"})`` as 0-d tensors, the loss differentiable in the
+    model's parameters (a trainer calls ``requires_grad_(True)`` on the
+    model), the metrics detached.
+    """
+    out = cnn.apply(model, batch["images"], cfg.cnn)
+    labels = [batch[name].long() for name in ("type", "size", "color")]
+    target = target_query(codebooks, torch.stack(labels, dim=-1), cfg)
+    cos = vsa.similarity(out["query"], target)
+    loss = torch.mean(1.0 - cos)
+    aux = 0.0
+    for a, lbl in enumerate(labels):
+        logp = torch.log_softmax(out["attr_logits"][a], dim=-1)
+        aux = aux + torch.mean(-torch.gather(logp, 1, lbl[:, None]))
+    metrics = {"cosine": torch.mean(cos).detach(), "aux_ce": aux.detach()}
+    return loss + 0.3 * aux, metrics
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,7 @@ KV caches and pools are mutable serving state (the reference donates them
 through its jitted dispatches): the port writes new KV into them in place
 with ``index_put_`` and returns the same dicts.
 
-Not ported yet (ROADMAP Queue A item 1b): ``flash_attention`` and
+Not ported yet (ROADMAP Queue A item 2): ``flash_attention`` and
 ``attention`` (the training / full-sequence forward) and M-RoPE.
 """
 from __future__ import annotations
@@ -148,7 +148,7 @@ def init_attention(generator, cfg: AttnConfig, dtype=torch.float32):
 def _qkv(p, x: torch.Tensor, cfg: AttnConfig, positions) -> tuple:
     if cfg.mrope_sections is not None:
         raise NotImplementedError("M-RoPE is not ported yet (ROADMAP Queue A "
-                                  "item 1b, the rest of the LM path)")
+                                  "item 2, the rest of the LM path)")
     B, S, _ = x.shape
     dh = cfg.dh
     q = dense(p["q"], x).reshape(B, S, cfg.n_heads, dh)

@@ -14,7 +14,7 @@ head included) already in ``activ_dtype``, which gives the same numbers and
 halves the bytes a bf16 decode step reads.  Norm scales stay fp32.  The
 reference's scan over stacked periods is a Python loop over layers here.
 
-Not ported yet (ROADMAP Queue A item 1b): ``forward`` and ``loss_fn`` (the
+Not ported yet (ROADMAP Queue A item 2): ``forward`` and ``loss_fn`` (the
 training / full-sequence path), stateful blocks and their caches.
 """
 from __future__ import annotations
@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from repro_torch.device import DEFAULT_DEVICE, resolve
 from repro_torch.nn import layers as L
 
-_LATER = "ROADMAP Queue A item 1b, the rest of the LM path"
+_LATER = "ROADMAP Queue A item 2, the rest of the LM path"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -4,8 +4,8 @@ The port of ``repro/runtime/lm.py``.  ``launch/serve.ServeEngine`` is the
 device layer (masked batch decode over a shared KV cache, per-slot prefill); this
 adapter adds the request layer the factorizer ``Engine`` already has —
 queueing, slot ownership, burst-scan retirement, per-request latency
-accounting (the reference's ``Runtime`` interleaves it with factorization
-engines; the port's runtime waits for ROADMAP Queue A item 3).
+accounting (``runtime/runtime.py::Runtime`` interleaves it with the
+factorization engines, as the reference's does).
 
 With ``paged=PagedConfig(...)`` (or ``REPRO_LM_PAGED=1`` in the
 environment) the device layer serves from the block-table KV pool

@@ -1026,3 +1026,95 @@ def test_measured_retune_times_the_card_from_the_stepper_thread(cuda,
     assert seen and all(name == "repro-runtime-stepper" and t > 0
                         and torch.device(d).type == "cuda"
                         for name, d, t in seen)
+
+
+# Training (slice 11) ----------------------------------------------------------
+
+def _frontend_batch(n=16):
+    from repro_torch.data import raven
+    return raven.attribute_classification_batch(np.random.default_rng(0), n)
+
+
+@pytest.mark.cuda
+def test_frontend_loss_gradients_on_the_card_match_the_cpu(cuda):
+    """cuDNN convolutions (TF32 off) and cuBLAS sum in another order than
+    the CPU's: the loss at rtol 1e-5, every gradient at rtol 1e-4, atol
+    1e-6 (the CPU tests' band against the reference)."""
+    from repro_torch.models import cnn, nvsa
+    cfg = nvsa.NVSAConfig()
+    b = _frontend_batch()
+    out = {}
+    for dev in ("cpu", cuda):
+        cbs, _ = nvsa.make_codebooks(0, cfg, device=dev)
+        model = cnn.init(cfg.cnn, 0, device=dev).requires_grad_(True)
+        loss, _ = nvsa.frontend_loss(model, {k: torch.from_numpy(v).to(dev)
+                                             for k, v in b.items()}, cbs, cfg)
+        loss.backward()
+        out[str(dev)] = (loss.item(), {k: p.grad.cpu() for k, p in
+                                       model.named_parameters()})
+    (l_c, g_c), (l_g, g_g) = out["cpu"], out[str(cuda)]
+    assert l_g == pytest.approx(l_c, rel=1e-5)
+    for k in g_c:
+        torch.testing.assert_close(g_g[k], g_c[k], rtol=1e-4, atol=1e-6,
+                                   msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["adamw", "adafactor"])
+def test_one_optimizer_step_on_the_card_matches_the_cpu(cuda, kind):
+    """One step from the same params and gradients: elementwise fp32 (sqrt
+    and division within an ulp on the card) and, for Adafactor, mean
+    reductions in another order: rtol 1e-5, atol 1e-7."""
+    from repro_torch.train import optimizer as optim
+    from repro_torch.train.checkpoint import flatten
+    rng = np.random.default_rng(1)
+    shapes = {"w": (256, 128), "b": (128,)}
+    p0 = {k: rng.standard_normal(s).astype(np.float32)
+          for k, s in shapes.items()}
+    g0 = {k: (0.1 * rng.standard_normal(s)).astype(np.float32)
+          for k, s in shapes.items()}
+    got = {}
+    for dev in ("cpu", cuda):
+        ps = [torch.tensor(p0[k], device=dev, requires_grad=True)
+              for k in sorted(shapes)]
+        opt = (optim.adamw(ps, 1e-2, weight_decay=0.01) if kind == "adamw"
+               else optim.adafactor(ps, 1e-2))
+        for p, k in zip(ps, sorted(shapes)):
+            p.grad = torch.from_numpy(g0[k]).to(dev)
+        opt.step()
+        got[str(dev)] = [p.detach().cpu() for p in ps] + [
+            t.cpu() for t in flatten(opt.state_tree())]
+    for a, c in zip(got[str(cuda)], got["cpu"]):
+        torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_circconv_bind_on_the_card_refuses_autograd(cuda):
+    from repro_torch.kernels.circconv import ops as cc
+    cfg = vsa.VSAConfig(2048, 8, impl="pallas")
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn((4, 2048), generator=gen).to(cuda).requires_grad_(True)
+    y = torch.randn((4, 2048), generator=gen).to(cuda)
+    before = cc.rows_launches
+    with pytest.raises(RuntimeError, match="no gradient"):
+        vsa.bind(x, y, cfg)
+    assert cc.rows_launches == before  # refused before any launch
+    with torch.no_grad():
+        out = vsa.bind(x, y, cfg)
+    assert cc.rows_launches == before + 1
+    torch.testing.assert_close(out, vsa.bind(x.detach(), y, vsa.VSAConfig(
+        2048, 8, impl="fft")), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cnn_params_round_trip_through_the_reference_layout_on_the_card(cuda):
+    from repro_torch import convert
+    from repro_torch.models import cnn
+    model = cnn.init(cnn.CNNConfig(), 3, device=cuda)
+    back = convert.cnn_params_from_reference(
+        convert.cnn_params_to_reference(model), device=cuda)
+    for (k, p), (_, q) in zip(model.named_parameters(),
+                              back.named_parameters()):
+        assert q.device.type == "cuda" and torch.equal(p, q), k
+    assert convert.cnn_params_to_reference(model)["conv0_w"].shape == \
+        (3, 3, 1, 32)

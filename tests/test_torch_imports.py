@@ -1,5 +1,6 @@
-"""The port's boundary: ``repro_torch`` and ``chip_smoke.py`` use no JAX and
-nothing of the reference package ``repro``.
+"""The port's boundary: ``repro_torch``, ``chip_smoke.py``, the port's
+examples (``examples/torch_*.py``) and ``tools/train_phase.py`` use no JAX
+and nothing of the reference package ``repro``.
 
 Importing is checked in a fresh subprocess, because this test process has
 already imported JAX for the parity tests.
@@ -13,6 +14,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 CHIP_SMOKE = ROOT / "chip_smoke.py"
+SCRIPTS = [CHIP_SMOKE, ROOT / "examples" / "torch_raven_abduction.py",
+           ROOT / "examples" / "torch_mimonet_superposition.py",
+           ROOT / "tools" / "train_phase.py"]
 
 _IMPORT_ALL = """
 import importlib, importlib.util, pkgutil, sys
@@ -20,8 +24,9 @@ import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for i, path in enumerate(sys.argv[1:]):
+    spec = importlib.util.spec_from_file_location(f"script_{i}", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
@@ -31,18 +36,20 @@ print(len(names), bad)
 
 def test_importing_every_module_loads_no_jax_and_no_reference():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL, str(CHIP_SMOKE)],
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL,
+                          *map(str, SCRIPTS)],
                          capture_output=True, text=True, env=env, cwd=ROOT,
                          timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 76  # every package and module of the port, the LM
+    assert int(count) >= 81  # every package and module of the port, the LM
     # serving slice's (nn, configs, lm, launch, runtime, flash_decode), the
     # sharded engine's (launch.mesh, engine.sharding), MIMONet's
     # (kernels.circconv, models.mimonet, core.superposition), NVSA's
     # (core.symbolic, models.cnn, models.nvsa, engine.build) and the
     # supervised runtime's (runtime.{protocol,telemetry,faults,fleet,
-    # runtime}, obs.{slo,report}) included
+    # runtime}, obs.{slo,report}) and training's (train, train.{optimizer,
+    # checkpoint,loop}, models.prae) included
     assert bad == "[]"
 
 
@@ -57,9 +64,10 @@ def _imported(path: Path) -> set:
 
 
 def test_no_source_of_the_port_imports_jax_or_the_reference():
-    files = sorted(PORT.rglob("*.py")) + [CHIP_SMOKE]
-    assert len(files) >= 78
-    names = {p.relative_to(PORT).as_posix() for p in files[:-1]}
+    port = sorted(PORT.rglob("*.py"))
+    assert len(port) >= 82
+    files = port + SCRIPTS
+    names = {p.relative_to(PORT).as_posix() for p in port}
     assert {"nn/layers.py", "nn/transformer.py", "lm/model.py",
             "lm/paging.py", "lm/sampling.py", "launch/serve.py",
             "runtime/lm.py", "configs/registry.py",
@@ -72,7 +80,9 @@ def test_no_source_of_the_port_imports_jax_or_the_reference():
             "core/symbolic.py", "models/cnn.py", "models/nvsa.py",
             "engine/build.py", "data/raven.py", "runtime/protocol.py",
             "runtime/telemetry.py", "runtime/faults.py", "runtime/fleet.py",
-            "runtime/runtime.py", "obs/slo.py", "obs/report.py"} <= names
+            "runtime/runtime.py", "obs/slo.py", "obs/report.py",
+            "train/__init__.py", "train/optimizer.py", "train/checkpoint.py",
+            "train/loop.py", "models/prae.py"} <= names
     for path in files:
         for name in _imported(path):
             top = name.split(".")[0]

@@ -339,5 +339,5 @@ def test_unported_configs_raise_naming_the_roadmap_item():
     for bad in (dict(block_pattern=("attn_moe",)),
                 dict(block_pattern=("mamba_mlp",)),
                 dict(moe=object()), dict(mrope_sections=(4, 2, 2))):
-        with pytest.raises(NotImplementedError, match="Queue A item 1b"):
+        with pytest.raises(NotImplementedError, match="Queue A item 2"):
             T.init(dataclasses.replace(cfg, **bad), 0, "cpu")

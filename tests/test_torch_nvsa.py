@@ -143,9 +143,27 @@ def test_perceive_equals_the_reference(frontend, mode):
                                    rtol=0)
 
 
-def test_frontend_loss_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        tn.frontend_loss(None, None, None, tn.NVSAConfig())
+@pytest.mark.parametrize("mode", ["logits_bind", "head"])
+def test_frontend_loss_matches_the_reference(frontend, mode):
+    """The loss and its metrics on a rendered task batch's panels at rtol
+    1e-5 (the gradients: tests/test_torch_frontend_train.py).  The loss
+    trains the query head and the attribute heads whatever the query mode,
+    so both modes give the same loss."""
+    cfg_r, cfg_t, cbs_r, cbs_t, params, model, b = frontend
+    cfg_r = dataclasses.replace(cfg_r, query_mode=mode)
+    cfg_t = dataclasses.replace(cfg_t, query_mode=mode)
+    imgs = b["images"][:, :8].reshape(-1, 32, 32)
+    labels = {a: b[f"grid_{a}"].reshape(len(b["images"]), 9)[:, :8].reshape(-1)
+              for a in ("type", "size", "color")}
+    loss_r, m_r = rn.frontend_loss(params, {"images": jnp.asarray(imgs),
+                                            **{k: jnp.asarray(v) for k, v in
+                                               labels.items()}}, cbs_r, cfg_r)
+    loss, m = tn.frontend_loss(model, {"images": torch.from_numpy(imgs),
+                                       **{k: torch.from_numpy(v) for k, v in
+                                          labels.items()}}, cbs_t, cfg_t)
+    assert float(loss) == pytest.approx(float(loss_r), rel=RTOL)
+    for k in ("cosine", "aux_ce"):
+        assert float(m[k]) == pytest.approx(float(m_r[k]), rel=RTOL)
 
 
 # Beliefs and the abduction tail ----------------------------------------------

@@ -121,3 +121,29 @@ def test_render_panels():
     small = (tr.render_panel(4, 0, 9) > 0).sum()
     big = (tr.render_panel(4, 5, 9) > 0).sum()
     assert big > small * 2
+
+
+@pytest.mark.parametrize("seed,n", [(0, 128), (7, 5), (10_000, 256)])
+def test_attribute_classification_batch_equals_the_reference(seed, n):
+    """The frontend trainers' batches (panels from the port's table)."""
+    got = tr.attribute_classification_batch(np.random.default_rng(seed), n)
+    want = rr.attribute_classification_batch(np.random.default_rng(seed), n)
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_panel_table_holds_every_rendered_panel_read_only():
+    table = tr.panel_table()
+    assert table.shape == (tr.NUM_TYPES, tr.NUM_SIZES, tr.NUM_COLORS, 32, 32)
+    assert not table.flags.writeable
+    ids = np.arange(10, dtype=np.int32)  # ids as the tasks' arrays hold them
+    for t in range(tr.NUM_TYPES):
+        for s in range(tr.NUM_SIZES):
+            for c in range(tr.NUM_COLORS):
+                np.testing.assert_array_equal(
+                    table[t, s, c], rr.render_panel(ids[t], ids[s], ids[c]))
+    batch = tr.attribute_classification_batch(np.random.default_rng(1), 4)
+    batch["images"][0] = -1.0  # a batch is a copy, never the table
+    assert (table >= 0).all()

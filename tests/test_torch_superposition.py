@@ -70,6 +70,6 @@ def test_make_stream_keys_are_unitary():
 
 
 def test_mimo_lm_logits_waits_for_the_full_sequence_forward():
-    with pytest.raises(NotImplementedError, match="Queue A item 1b"):
+    with pytest.raises(NotImplementedError, match="Queue A item 2"):
         tsup.mimo_lm_logits(None, None, torch.zeros((1, 2, 4), dtype=torch.long),
                             torch.zeros((2, 64)))

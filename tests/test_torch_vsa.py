@@ -117,6 +117,30 @@ def test_random_bipolar_is_pm1_and_device_independent():
     assert bool((a.abs() == 1).all()) and torch.equal(a, b)
 
 
+def test_random_normal_has_unit_mean_squared_norm_and_is_seeded():
+    """As the reference's ``random_normal``: i.i.d. N(0, 1/D) lanes, so a
+    vector's squared norm is chi^2_D / D (mean 1, variance 2/D); the mean of
+    N vectors' lies within 3 sigma = 3 sqrt(2 / (N D)) of 1."""
+    cfg = tv.VSAConfig(1024, 4)
+    n = 512
+    x = tv.random_normal(torch.Generator().manual_seed(5), (2, n // 2), cfg,
+                         device="cpu")
+    assert x.shape == (2, n // 2, 1024) and x.dtype == torch.float32
+    sq = float(torch.sum(x * x, dim=-1).mean())
+    assert abs(sq - 1.0) <= 3 * (2.0 / (n * 1024)) ** 0.5, sq
+    ref = np.asarray(rv.random_normal(jax.random.PRNGKey(5), (n,),
+                                      rv.VSAConfig(1024, 4)))
+    assert abs(float(np.sum(ref * ref, -1).mean()) - 1.0) <= \
+        3 * (2.0 / (n * 1024)) ** 0.5  # the reference's own draw, same bound
+    again = tv.random_normal(torch.Generator().manual_seed(5), (2, n // 2),
+                             cfg, device="cpu")
+    other = tv.random_normal(torch.Generator().manual_seed(6), (2, n // 2),
+                             cfg, device="cpu")
+    assert torch.equal(x, again) and not torch.equal(x, other)
+    assert tv.random_normal(0, (3,), cfg, dtype=torch.float64,
+                            device="cpu").dtype == torch.float64
+
+
 def test_pallas_impl_waits_for_the_circconv_kernels():
     """The circconv kernels wait for a CUDA tensor: on CPU tensors
     ``impl="pallas"`` binds and unbinds through their plain versions and
