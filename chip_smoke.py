@@ -34,8 +34,10 @@ port from the checkout's sources (into ``build/kernels/``), then:
      replay, and per call with the host included);
  11. holds the paged decode attention kernel ``flash_decode`` against its
      plain version at the reference test's block-boundary cases, at the
-     serving shape of Llama 3.2 3B, and at rows on and next to the split
-     boundaries of 2, 4 and 8 blocks a cluster, bf16 and int8 pools (2e-5);
+     serving shape of Llama 3.2 3B, at rows on and next to the split
+     boundaries of 2, 4 and 8 blocks a cluster, and at the other configs'
+     head shapes (Granite rep 3 dh 64, starcoder2 rep 12, rep 10 padded to
+     12), bf16 and int8 pools (2e-5);
  12. serves Llama 3.2 3B at full width (28 layers, d 3072, GQA 24/8, vocab
      128256; random bf16 weights drawn on the card) through
      ``LMEngine(slots=32, paged bs 16, chunk 64)``: 64 greedy requests of
@@ -142,7 +144,35 @@ port from the checkout's sources (into ``build/kernels/``), then:
      reference's CPU figure), then served with impl="pallas": 2
      ``circconv_rows`` launches a batch, logits against impl="fft" at atol
      1e-5, rtol 1e-4, predictions equal but at near ties, panels/s each;
- 26. prints one JSON line describing every kernel, the card line, and as
+ 26. serves Granite-MoE 3B at full size (32 layers, d 1536, 24/8 heads of
+     64, 40 experts top-8 of width 512, vocab 49155; 3,374,295,552 random
+     bf16 parameters drawn on the card) through ``LMEngine(slots=32, paged
+     bs 16, chunk 64)``: Llama's 64 greedy requests, every one complete, no
+     non-finite logit, flash_decode launches = 32 x decode steps; the MoE's
+     dropped share at prefill and at decode, wall, tokens/s, p50/p99, the
+     decode step's host and device time; the greedy contract on 8 prompts,
+     where a pair past 8 ulps is excused only on a row whose MoE routing
+     differed between the two runs at that step or before (named), and a
+     routing difference needs a router top-K margin of at most 1 bf16 ulp;
+ 27. serves starcoder2-3b at full size (rep 12: 24 query heads over 2 KV
+     heads of 128) through the same LMEngine: 16 requests, complete,
+     flash_decode launches = 30 x decode steps;
+ 28. runs every other architecture at full width: minicpm-2b, whisper-small
+     (1500 frames) and xlstm-125m whole; qwen2.5-32b at 4 layers,
+     qwen2-vl-72b at 2 (256 vision patches, M-RoPE), dbrx-132b at 2 and
+     jamba-1.5-large-398b at one period of 8 with 4 of 16 experts:
+     ``forward`` + ``loss_fn`` on 4 x 512 tokens (finite; tokens/s, peak
+     memory) and 16 greedy decode steps (the contiguous ``ServeEngine``
+     where the reference serves the model, ``decode_step`` for whisper and
+     qwen2-vl);
+ 29. all ten architectures at smoke shapes, the same weights on the card and
+     on the CPU: forward logits, loss and 8 decode steps, fp32 within 1e-5
+     of each row's largest |logit| (decode steps 2e-5) and bf16 within 8
+     ulps of it (a row the two runs route otherwise through a MoE is
+     excused and named);
+ 30. times flash_decode at Granite's shape (rep 3, dh 64) and starcoder2's
+     (rep 12, dh 128), cold L2, beside its bound, plain version and SDPA;
+ 31. prints one JSON line describing every kernel, the card line, and as
      the last line ``{"ok": true, "device": {...}}``.
 
 A failed phase raises, and the script exits nonzero.  Without a CUDA device,
@@ -770,6 +800,10 @@ FD_LENS = ((1, 1, 1), (3, 8, 9), (8, 16, 24), (9, 17, 23), (16, 24, 8),
            (24, 24, 24), (0, 5, 0))
 FD_ATOL = FD_RTOL = 2e-5
 FD_SPLITS = (2, 4, 8)  # forced split counts held against the plain version
+# The other configs' head shapes (G, rep, dh): Granite-MoE 3B, starcoder2-3b
+# and a rep the source does not instantiate (padded with zero heads to 12).
+FD_CONFIG_SHAPES = {"granite-moe-3b-a800m": (8, 3, 64),
+                    "starcoder2-3b": (2, 12, 128), "rep 10": (2, 10, 128)}
 # Phase 15's cold timing: input sets rotated in one graph, so that a round's
 # live K/V exceeds twice the H100's 50 MB L2 (data sheet).
 FD_COLD_SETS = {"bf16": 4, "int8": 8}
@@ -892,6 +926,25 @@ def phase_flash_decode(torch, dev, fd):
               f"{', '.join(map(str, FD_SPLITS))} blocks a cluster: max "
               f"|kernel - plain| {err[kv]:.3g} ({d:.3g} at the serving "
               f"shape)", flush=True)
+    # the other configs' head shapes at the serving window (32 slots, bs 16,
+    # 35 blocks a row), lengths from 0 to the full window
+    width = -(-LM_MAX_LEN // LM_BLOCK)
+    lens = np.random.default_rng(15).integers(1, LM_MAX_LEN + 1, LM_SLOTS)
+    lens[:2] = (0, LM_MAX_LEN)
+    kv_lens = torch.from_numpy(lens.astype(np.int32)).to(dev)
+    for name, (g, rep, dh) in FD_CONFIG_SHAPES.items():
+        for kv in ("bf16", "int8"):
+            q, pool, table = fd_inputs(torch, LM_SLOTS, g, rep, dh, LM_BLOCK,
+                                       width, kv, 16 + rep, dev, dh ** -0.5)
+            d = max(check(kv, q, pool, table, kv_lens, f"{name}'s shape"),
+                    check(kv, q, pool, table, kv_lens,
+                          f"{name}'s shape, 8 blocks a cluster", 8))
+            err[f"{name}, {kv}"] = d
+            print(f"phase 11: flash_decode ({kv} pool) at {name}'s shape B="
+                  f"{LM_SLOTS} G={g} rep={rep} (runs at "
+                  f"{fdk.launch_rep(rep)}) dh={dh} bs={LM_BLOCK} W={width}: "
+                  f"max |kernel - plain| {d:.3g} (split count chosen and 8)",
+                  flush=True)
     return err
 
 
@@ -986,14 +1039,15 @@ def device_profile(torch, fn, reps: int = 3) -> str:
                                       for k, v in top))
 
 
-def lm_breakdown(torch, dev, cfg, model, lens, fd, card):
+def lm_breakdown(torch, dev, cfg, model, lens, fd, card, phase=12):
     """Where a decode step and a prefill chunk spend their time, at the
     run's shape (LM_SLOTS active slots at `lens`; one LM_CHUNK-token chunk
     at position 256) on a pool of the run's size: device time from
     CUDA-graph replay (the kernels back to back, no host), host wall of an
     eager call ended by a sync, and a profiler trace of the eager decode
     step (kernels launched, device busy time, the costliest kernels).
-    Returns the decode step's device ms."""
+    Returns {"decode step" / "prefill chunk": (device ms, host wall ms),
+    "profile": the trace's summary}."""
     import numpy as np
 
     from repro_torch.lm import model as lm_model
@@ -1026,14 +1080,16 @@ def lm_breakdown(torch, dev, cfg, model, lens, fd, card):
         out[name] = (dev_ms, (time.perf_counter() - t0) / 5 * 1e3)
     prof = device_profile(torch, step)
     fd.launches = launches  # these launches are not the main path's
-    print(f"phase 12: breakdown on {card}: decode step ({LM_SLOTS} slots, "
+    print(f"phase {phase}: breakdown on {card}: decode step ({LM_SLOTS} "
+          f"slots, "
           f"mean length {np.mean(lens):.0f}) device {out['decode step'][0]:.3f} "
           f"ms (CUDA graph), host wall eager {out['decode step'][1]:.3f} ms; "
           f"prefill chunk ({LM_CHUNK} tokens at position 256) device "
           f"{out['prefill chunk'][0]:.3f} ms, host wall eager "
           f"{out['prefill chunk'][1]:.3f} ms", flush=True)
-    print(f"phase 12: profiler, eager decode step: {prof}", flush=True)
+    print(f"phase {phase}: profiler, eager decode step: {prof}", flush=True)
     del pool
+    return {**out, "profile": prof}
 
 
 def phase_lm_serving(torch, dev, fd, card):
@@ -1103,7 +1159,7 @@ def phase_lm_serving(torch, dev, fd, card):
 
 
 def greedy_contract(torch, dev, cfg, model, prompts, kv, phase,
-                    steps=LM_NEW):
+                    steps=LM_NEW, tap=None):
     """The same prompts through two ServeEngines in lockstep, one with the
     kernel and one with the dense path (``use_flash=False``).
 
@@ -1113,8 +1169,16 @@ def greedy_contract(torch, dev, cfg, model, prompts, kv, phase,
     max |dlogit| over the vocabulary is at most DEV_ULPS bf16 ulps of the
     dense row's top logit.  A pair where the tokens differ then has a dense
     top-2 gap of at most 2 * DEV_ULPS (the two logits moved by at most
-    DEV_ULPS each): a near tie.  Returns (diverging streams, first step's
-    max |dlogit|)."""
+    DEV_ULPS each): a near tie.
+
+    With a MoE (``tap``, a :class:`MoETap`), a pair may exceed DEV_ULPS
+    only on a row whose routing (an expert chosen, or a slot kept) differed
+    between the two runs at that step or an earlier one (its KV differs
+    from then on); such pairs are named.  A routing difference at a step
+    needs a router top-K margin of at most ROUTER_TIE_ULPS bf16 ulps in the
+    dense run at that step (the rows of a decode step share one routing
+    group, so one flipped choice can move every row's drops).  Returns
+    (diverging streams, first step's max |dlogit|, excused pairs)."""
     from repro_torch.launch.serve import ServeEngine
     from repro_torch.lm.paging import PagedConfig
 
@@ -1130,10 +1194,29 @@ def greedy_contract(torch, dev, cfg, model, prompts, kv, phase,
     kern, plain = engs
     diverged = set()
     d0 = worst = 0.0
-    gaps, pinned = [], 0
+    gaps, pinned, excused, tie_steps, flip_steps = [], 0, [], 0, 0
+    tainted = torch.zeros(len(prompts), dtype=torch.bool)
     for step in range(steps):
+        if tap is not None:
+            tap.routes = []
         kern.step()
+        if tap is not None:
+            routes_k, tap.routes, tap.margins = tap.routes, [], []
         plain.step()
+        if tap is not None:
+            margin = float(torch.stack(tap.margins).min())
+            changed = tap.changed_rows(routes_k, tap.routes).cpu()
+            tap.margins = tap.routes = None
+            tie_steps += margin <= ROUTER_TIE_ULPS
+            if bool(changed.any()):
+                flip_steps += 1
+                if margin > ROUTER_TIE_ULPS:
+                    raise AssertionError(
+                        f"greedy ({kv}): the two runs route rows "
+                        f"{changed.nonzero().flatten().tolist()} differently "
+                        f"at step {step}, where the dense run's smallest "
+                        f"router top-K margin is {margin:.0f} bf16 ulps")
+            tainted |= changed
         lk, lp = kern.last_logits, plain.last_logits
         top = torch.topk(lp, 2, dim=-1).values
         ulp = torch.exp2(torch.floor(torch.log2(top[:, 0].abs())) - 7)
@@ -1141,6 +1224,13 @@ def greedy_contract(torch, dev, cfg, model, prompts, kv, phase,
         gap = ((top[:, 0] - top[:, 1]) / ulp).cpu()
         if step == 0:
             d0 = (lk - lp).abs().max().item()
+        if bool(tainted.any()):
+            for s in range(len(prompts)):
+                if tainted[s] and float(dev_ulps[s]) > DEV_ULPS:
+                    excused.append(f"(row {s}, step {step}: "
+                                   f"{float(dev_ulps[s]):.1f} ulps)")
+            dev_ulps = torch.where(tainted & (dev_ulps > DEV_ULPS), 0.0,
+                                   dev_ulps)
         worst = max(worst, float(dev_ulps.max()))
         if worst > DEV_ULPS:
             s = int(dev_ulps.argmax())
@@ -1164,8 +1254,16 @@ def greedy_contract(torch, dev, cfg, model, prompts, kv, phase,
           f"{worst:.2f} ulps of the row's top logit (limit {DEV_ULPS}); "
           f"{pinned} of {len(prompts) * steps} pairs have a gap above "
           f"{2 * DEV_ULPS} ulps, where the limit pins the token; first "
-          f"step's max |dlogit| {d0:.4g}", flush=True)
-    return len(diverged), d0
+          f"step's max |dlogit| {d0:.4g}"
+          + ("" if tap is None else
+             f"; {tie_steps} of {steps} steps had a router top-K margin of "
+             f"at most {ROUTER_TIE_ULPS} bf16 ulp in the dense run, "
+             f"{flip_steps} routed some row differently in the two runs "
+             f"({int(tainted.sum())} of {len(prompts)} rows by the end); "
+             f"pairs past the limit on "
+             f"such rows: {len(excused)} [{', '.join(excused)}]"),
+          flush=True)
+    return len(diverged), d0, excused
 
 
 def fault_control(torch, dev, cfg, model, prompts, fd):
@@ -1222,7 +1320,8 @@ def rotate(fns):
     return lambda: next(it)()
 
 
-def phase_fd_timing(torch, dev, fd, lens, card):
+def phase_fd_timing(torch, dev, fd, lens, card, *, g=8, rep=3, dh=128,
+                    kvs=("bf16", "int8"), phase=15, gate=True):
     """flash_decode at the serving shape, its plain version, its bound and
     one library call (SDPA over K/V already gathered into a contiguous
     window with a length mask; the gather is not timed), bf16 and int8
@@ -1232,22 +1331,24 @@ def phase_fd_timing(torch, dev, fd, lens, card):
     together exceed twice the L2, as in serving, where each layer reads its
     own slice of the pool; the bound share and the comparison with SDPA use
     these.  Warm: one input set, replayed, partly from the L2.  Also cold:
-    every row at the mean length, and each forced split count."""
+    every row at the mean length, and each forced split count.  ``gate``:
+    the kernel must be no slower than SDPA cold (phase 15's redesigned
+    shape; the other configs' shapes are timed, not gated)."""
     import numpy as np
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_decode import kernel as k
 
     width = -(-LM_MAX_LEN // LM_BLOCK)
-    g, rep, dh = 8, 3, 128
     kv_lens = torch.from_numpy(np.asarray(lens, np.int32)).to(dev)
     even = torch.full_like(kv_lens, int(round(float(np.mean(lens)))))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     chosen = k.split_count(LM_SLOTS, g, width * LM_BLOCK, sms)
     out = {}
-    for kv in ("bf16", "int8"):
+    for kv in kvs:
         b_ms, b_by, nbytes = fd_bound(lens, g, rep, dh, kv == "int8")
-        n_sets = FD_COLD_SETS[kv]
+        n_sets = (FD_COLD_SETS[kv] if (g, rep, dh) == (8, 3, 128)
+                  else int(2 * L2_BYTES // nbytes) + 1)
         if n_sets * nbytes <= 2 * L2_BYTES:
             raise AssertionError(f"phase 15: {n_sets} sets of {nbytes / 1e6:.1f}"
                                  " MB do not exceed twice the L2")
@@ -1300,7 +1401,7 @@ def phase_fd_timing(torch, dev, fd, lens, card):
         out[kv] = {"ms": ms, "plain_ms": min(p1, p2), "bound_ms": b_ms,
                    "bound_by": b_by, "library_ms": lib_ms, "warm_ms": k_warm,
                    "library_warm_ms": l_warm, "splits": chosen}
-        print(f"phase 15: flash_decode ({kv} pool) at B={LM_SLOTS} G={g} "
+        print(f"phase {phase}: flash_decode ({kv} pool) at B={LM_SLOTS} G={g} "
               f"rep={rep} dh={dh} bs={LM_BLOCK} W={width}, mean live length "
               f"{np.mean(lens):.0f}, {chosen} blocks a cluster (split_count, "
               f"{sms} SMs) on {card}: device time (CUDA graph), cold L2 "
@@ -1320,12 +1421,13 @@ def phase_fd_timing(torch, dev, fd, lens, card):
                                      for s, t in by_split.items()),
               flush=True)
         if b_ms / ms > 1.05:
-            raise AssertionError(f"phase 15: flash_decode ({kv}) reads at "
-                                 f"{b_ms / ms:.1%} of its HBM bound cold: "
+            raise AssertionError(f"phase {phase}: flash_decode ({kv}) reads "
+                                 f"at {b_ms / ms:.1%} of its HBM bound cold: "
                                  "the L2 is not cold")
-        if ms > lib_ms:
-            raise AssertionError(f"phase 15: flash_decode ({kv}) {ms:.5f} ms "
-                                 f"cold is slower than SDPA's {lib_ms:.5f}")
+        if gate and ms > lib_ms:
+            raise AssertionError(f"phase {phase}: flash_decode ({kv}) "
+                                 f"{ms:.5f} ms cold is slower than SDPA's "
+                                 f"{lib_ms:.5f}")
         del kern, plain, library
         torch.cuda.empty_cache()
     return out
@@ -3245,6 +3347,472 @@ def phase_train(torch, dev, rs, cc, card) -> dict:
     return out
 
 
+# The rest of the LM stack (phases 26-30): Granite-MoE 3B served paged at
+# full size, starcoder2-3b (rep 12) through LMEngine, every other
+# architecture at full width (depth cut where one card cannot hold it), and
+# all ten against the CPU at smoke shapes.
+GRANITE, STARCODER = "granite-moe-3b-a800m", "starcoder2-3b"
+GRANITE_PARAMS = 3_374_295_552
+STARCODER_REQUESTS = 16
+# A MoE router choice within this many bf16 ulps (the K-th largest router
+# logit over the next) may flip between two runs whose bf16 logits differ
+# by an ulp; a pair past DEV_ULPS is excused only at such a step.
+ROUTER_TIE_ULPS = 1
+ARCH_BATCH, ARCH_SEQ = 4, 512  # forward + loss_fn
+ARCH_DECODE, ARCH_PROMPT = 16, 16  # greedy decode steps; prompt tokens
+# Full width at a cut depth where one card cannot hold the model (bf16):
+# qwen2.5-32b 4 of 64 layers, qwen2-vl-72b 2 of 80, dbrx-132b 2 of 40, and
+# jamba one period of 8 of 72 layers with 4 of 16 experts (top-2 kept; one
+# full period is 88.6 GB).  minicpm-2b, whisper-small, xlstm-125m whole.
+ARCH_CUTS = {"qwen2.5-32b": {"n_layers": 4}, "qwen2-vl-72b": {"n_layers": 2},
+             "dbrx-132b": {"n_layers": 2},
+             "jamba-1.5-large-398b": {"n_layers": 8, "experts": 4},
+             "minicpm-2b": {}, "whisper-small": {}, "xlstm-125m": {}}
+CPU_DECODE = 8  # phase 29: decode steps, card against the CPU
+# fp32, card against the CPU, of each row's largest |logit|: the forward and
+# the loss at the CPU parity tests' 1e-5; decode steps at 2e-5, since the
+# recurrent state carries each step's rounding on (first reading: jamba's
+# Mamba hybrid, 1.05e-5 at step 7 of 8).
+CPU_FP32_RTOL, CPU_FP32_DECODE_RTOL = 1e-5, 2e-5
+
+
+class MoETap:
+    """Wraps ``repro_torch.nn.moe.moe`` (the blocks look it up at call
+    time): keeps each call's dropped share on the device, by prefill
+    (S > 1) and decode (S = 1); while ``margins`` is a list, the smallest
+    top-K router margin of each call in bf16 ulps of the K-th logit; while
+    ``routes`` is a list, each call's routing as the layer computed it:
+    the chosen experts [B, S, K] and whether each choice kept its slot."""
+
+    def __init__(self, torch):
+        from repro_torch.nn import moe as Moe
+
+        self.torch, self.mod, self.orig = torch, Moe, Moe.moe
+        self.dropped = {"prefill": [], "decode": []}
+        self.margins = self.routes = None
+        Moe.moe = self
+
+    def __call__(self, p, x, cfg):
+        torch, Moe = self.torch, self.mod
+        y, aux = self.orig(p, x, cfg)
+        self.dropped["decode" if x.shape[1] == 1 else "prefill"].append(
+            aux["dropped_frac"].detach())
+        if self.margins is None and self.routes is None:
+            return y, aux
+        K, E = cfg.top_k, cfg.num_experts
+        logits = (x @ p["router"].to(x.dtype)).float()
+        if self.margins is not None:
+            top = torch.topk(logits, K + 1, dim=-1).values
+            kth = top[..., K - 1]
+            ulp = torch.exp2(torch.floor(torch.log2(
+                kth.abs().clamp_min(1e-30))) - 7)
+            self.margins.append(((kth - top[..., K]) / ulp).min())
+        if self.routes is not None:  # the layer's own routing, recomputed
+            B, S = x.shape[:2]
+            top_p, top_e = Moe.top_k(Moe.softmax(logits), K)
+            top_p = top_p / (top_p.sum(-1, keepdim=True) + 1e-9)
+            fold = B if (S == 1 and B > 1) else 1
+            cap = int(max(1, round(S * fold * K * cfg.capacity_factor / E)))
+            keep, order = Moe._route_local(x, top_e, top_p, E=E, K=K,
+                                           cap=cap, fold=fold)[3:]
+            kept = torch.empty_like(keep).scatter_(1, order, keep)
+            self.routes.append((top_e, kept.reshape(B, S, K)))
+        return y, aux
+
+    @staticmethod
+    def changed_rows(a: list, b: list):
+        """[B] bool: rows whose routing (experts or kept slots) differs in
+        any call between two runs' ``routes``."""
+        out = None
+        for (ea, ka), (eb, kb) in zip(a, b):
+            d = ((ea != eb) | (ka != kb)).flatten(1).any(1)
+            out = d if out is None else out | d
+        return out
+
+    def reset(self):
+        self.dropped = {"prefill": [], "decode": []}
+
+    def share(self, kind) -> float:
+        d = self.dropped[kind]
+        return float(self.torch.stack(d).mean()) if d else float("nan")
+
+    def close(self):
+        self.mod.moe = self.orig
+
+
+def phase_granite(torch, dev, fd, card) -> dict:
+    """Granite-MoE 3B at full size (32 layers, d 1536, 24/8 heads of 64, 40
+    experts top-8 of width 512, vocab 49155; random bf16 weights drawn on
+    the card) through LMEngine(slots=32, paged bs 16, chunk 64): Llama's 64
+    requests, every one complete, no non-finite logit, flash_decode
+    launches = 32 x decode steps; the dropped shares; the breakdown; the
+    greedy contract on 8 prompts with the router-tie excuse."""
+    from repro_torch.configs import registry
+    from repro_torch.nn import transformer as T
+
+    cfg = registry.get(GRANITE).full()
+    t0 = time.perf_counter()
+    model = T.init(cfg, 0, dev)
+    torch.cuda.synchronize()
+    n_params = T.param_count(model)
+    if n_params != GRANITE_PARAMS:
+        raise AssertionError(f"phase 26: {n_params:,} parameters, not "
+                             f"{GRANITE_PARAMS:,}")
+    print(f"phase 26: {cfg.name}: {n_params:,} parameters ({cfg.n_layers} "
+          f"layers, d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim}, {cfg.moe.num_experts} experts top-"
+          f"{cfg.moe.top_k} of width {cfg.moe.d_ff}), random bf16 weights "
+          f"drawn on the card in {time.perf_counter() - t0:.1f} s "
+          f"({torch.cuda.memory_allocated() / 1e9:.2f} GB)", flush=True)
+    tap = MoETap(torch)
+    try:
+        prompts = lm_prompts(LM_REQUESTS, cfg.vocab, seed=41)
+        serve_lm(torch, dev, cfg, model, prompts[:2], fd, "granite warm-up")
+        tap.reset()
+        run = serve_lm(torch, dev, cfg, model, prompts, fd, "granite run")
+        drop = {k: tap.share(k) for k in ("prefill", "decode")}
+        snap, spent, wall = run["snap"], run["spent"], run["wall"]
+        steps = run["dispatches"]
+        host_ms = spent["decode-burst"] / steps * 1e3
+        out = {"launches": run["launches"], "steps": steps, "wall": wall,
+               "tokens_per_s": LM_REQUESTS * LM_NEW / wall,
+               "p50": snap["latency_p50_ms"], "p99": snap["latency_p99_ms"],
+               "dropped": drop, "host_ms": host_ms}
+        print(f"phase 26: {LM_REQUESTS} greedy requests (prompts "
+              f"{LM_PROMPTS[0]}-{LM_PROMPTS[1]} tokens, {LM_NEW} new each) "
+              f"through LMEngine(slots={LM_SLOTS}, paged bs={LM_BLOCK}, "
+              f"chunk={LM_CHUNK}, max_len={LM_MAX_LEN}) on {card}: all "
+              f"{LM_NEW} tokens, none truncated, no non-finite logit; wall "
+              f"{wall * 1e3:.1f} ms, {out['tokens_per_s']:.1f} generated "
+              f"tokens/s, p50 {out['p50']:.1f} ms, p99 {out['p99']:.1f} ms; "
+              f"prefill (fill) {spent['fill'] * 1e3:.1f} ms in "
+              f"{run['engine'].serve.prefill_dispatches} chunks, decode "
+              f"{spent['decode-burst'] * 1e3:.1f} ms in {steps} steps, host "
+              f"wall per decode step {host_ms:.3f} ms; dropped share of "
+              f"(token, expert) assignments {drop['prefill']:.4f} at prefill "
+              f"(chunk padding included), {drop['decode']:.4f} at decode "
+              f"(idle slots included); flash_decode launches "
+              f"{run['launches']} = {cfg.n_layers} x {steps}", flush=True)
+        del run
+        lens = [min(len(p) + LM_NEW // 2, LM_MAX_LEN - 1)
+                for p in prompts[:LM_SLOTS]]
+        out["breakdown"] = lm_breakdown(torch, dev, cfg, model, lens, fd,
+                                        card, phase=26)
+        out["lens"] = lens
+        _, _, excused = greedy_contract(torch, dev, cfg, model, prompts[:8],
+                                        "bf16", 26, tap=tap)
+        out["excused"] = excused
+    finally:
+        tap.close()
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_starcoder(torch, dev, fd, card) -> dict:
+    """starcoder2-3b at full size (30 layers, d 3072, 24 query heads over 2
+    KV heads of 128: rep 12) through LMEngine: 16 requests, complete, no
+    non-finite logit, flash_decode launches = 30 x decode steps."""
+    from repro_torch.configs import registry
+    from repro_torch.nn import transformer as T
+
+    cfg = registry.get(STARCODER).full()
+    model = T.init(cfg, 0, dev)
+    prompts = lm_prompts(STARCODER_REQUESTS, cfg.vocab, seed=43)
+    run = serve_lm(torch, dev, cfg, model, prompts, fd, "starcoder2 run")
+    # the timing shape (phase 30): 32 slots at mid-decode lengths of prompts
+    # drawn as the run's are
+    out = {"launches": run["launches"], "steps": run["dispatches"],
+           "wall": run["wall"],
+           "tokens_per_s": STARCODER_REQUESTS * LM_NEW / run["wall"],
+           "lens": [min(len(p) + LM_NEW // 2, LM_MAX_LEN - 1)
+                    for p in lm_prompts(LM_SLOTS, cfg.vocab, seed=43)]}
+    print(f"phase 27: {cfg.name}: {T.param_count(model):,} parameters, rep "
+          f"{cfg.n_heads // cfg.n_kv_heads} (G {cfg.n_kv_heads}, dh "
+          f"{cfg.head_dim}); {STARCODER_REQUESTS} greedy requests through "
+          f"LMEngine(slots={LM_SLOTS}, paged bs={LM_BLOCK}, chunk="
+          f"{LM_CHUNK}) on {card}: all {LM_NEW} tokens, no non-finite logit; "
+          f"wall {run['wall'] * 1e3:.1f} ms, {out['tokens_per_s']:.1f} "
+          f"generated tokens/s; flash_decode launches {run['launches']} = "
+          f"{cfg.n_layers} x {run['dispatches']}", flush=True)
+    del run, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def cut_config(cfg, cut: dict):
+    """A full config at a cut depth (and, for jamba, fewer experts)."""
+    import dataclasses
+
+    kw = {}
+    if "n_layers" in cut:
+        kw["n_layers"] = cut["n_layers"]
+    if "experts" in cut:
+        kw["moe"] = dataclasses.replace(cfg.moe, num_experts=cut["experts"])
+    return dataclasses.replace(cfg, **kw) if kw else cfg
+
+
+def arch_inputs(torch, cfg, B, S, dev, seed=0) -> dict:
+    """A batch for ``forward``/``loss_fn``: tokens, and (qwen2-vl) a 16 x 16
+    grid of vision patches with M-RoPE positions (t 0, h row, w column;
+    text after at 16 + j on all three streams), (whisper) encoder frames."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=g,
+                                 device=dev)}
+    if cfg.mrope_sections is not None:
+        P = cfg.vision_patches
+        side = int(round(P ** 0.5))
+        i = torch.arange(P, device=dev)
+        j = torch.arange(S - P, device=dev) + side
+        pos = torch.stack([torch.cat([torch.zeros_like(i), j]),
+                           torch.cat([i // side, j]),
+                           torch.cat([i % side, j])])
+        b["positions"] = pos[None].expand(B, 3, S).contiguous()
+        b["vision_embeds"] = torch.randn((B, P, cfg.d_model), generator=g,
+                                         device=dev).to(torch.bfloat16)
+    if cfg.encoder is not None:
+        e = cfg.encoder
+        b["encoder_frames"] = torch.randn((B, e.n_frames, e.d_model),
+                                          generator=g, device=dev
+                                          ).to(torch.bfloat16)
+    return b
+
+
+def _decode_direct(torch, dev, cfg, model, batch, steps):
+    """``decode_step`` from a fresh cache, greedy (the reference serves
+    neither M-RoPE nor encoder-decoder stacks through ServeEngine)."""
+    from repro_torch.nn import transformer as T
+
+    B = batch["tokens"].shape[0]
+    cache = T.init_cache(cfg, B, steps + 1, device=dev)
+    enc = (T._encoder_forward(model, cfg, batch["encoder_frames"])
+           if cfg.encoder is not None else None)
+    tok = batch["tokens"][:, :1]
+    bad = 0
+    for t in range(steps):
+        pos = (torch.full((B, 3, 1), t, dtype=torch.long, device=dev)
+               if cfg.mrope_sections is not None else None)
+        logits, cache = T.decode_step(model, cfg, cache, tok, positions=pos,
+                                      enc_out=enc)
+        bad += int((~torch.isfinite(logits)).sum())
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+    return bad
+
+
+def _decode_served(torch, dev, cfg, model, prompts, steps):
+    """The contiguous ServeEngine, one slot a prompt, ``steps`` greedy
+    steps; non-finite logits of the active rows counted."""
+    from repro_torch.launch.serve import ServeEngine
+
+    eng = ServeEngine(cfg, model, len(prompts), ARCH_PROMPT + steps + 1,
+                      device=dev)
+    for s, p in enumerate(prompts):
+        eng.add_request(s, p)
+    bad = 0
+    for _ in range(steps):
+        eng.step()
+        act = torch.from_numpy(eng.active.copy()).to(dev)
+        bad += int(((~torch.isfinite(eng.last_logits)) & act[:, None]).sum())
+    if any(len(g) != steps + 1 for g in eng.generated):
+        raise AssertionError(f"{cfg.name}: a slot stopped early")
+    return bad
+
+
+def phase_arch_full(torch, dev, card) -> dict:
+    """Every other architecture at full width (ARCH_CUTS): forward +
+    loss_fn on 4 x 512 tokens (finite logits and loss; tokens/s, peak
+    memory) and 16 greedy decode steps (the contiguous ServeEngine where
+    the reference serves the model, decode_step otherwise)."""
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.nn import transformer as T
+
+    out = {}
+    for arch, cut in ARCH_CUTS.items():
+        cfg = cut_config(registry.get(arch).full(), cut)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = T.init(cfg, 0, dev)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        weights_gb = torch.cuda.memory_allocated() / 1e9
+        batch = arch_inputs(torch, cfg, ARCH_BATCH, ARCH_SEQ, dev)
+        T.loss_fn(model, cfg, batch)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, aux = T.forward(model, cfg, batch["tokens"],
+                                positions=batch.get("positions"),
+                                vision_embeds=batch.get("vision_embeds"),
+                                encoder_frames=batch.get("encoder_frames"))
+        torch.cuda.synchronize()
+        t_fwd = time.perf_counter() - t0
+        finite = bool(torch.isfinite(logits).all())
+        del logits
+        loss, metrics = T.loss_fn(model, cfg, batch)
+        if not finite or not bool(torch.isfinite(loss)):
+            raise AssertionError(f"phase 28: {arch}: non-finite logits or "
+                                 "loss")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        t0 = time.perf_counter()
+        served = cfg.encoder is None and cfg.mrope_sections is None
+        if served:
+            rng = np.random.default_rng(47)
+            prompts = [rng.integers(0, cfg.vocab, ARCH_PROMPT)
+                       for _ in range(ARCH_BATCH)]
+            bad = _decode_served(torch, dev, cfg, model, prompts,
+                                 ARCH_DECODE)
+        else:
+            bad = _decode_direct(torch, dev, cfg, model, batch, ARCH_DECODE)
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        if bad:
+            raise AssertionError(f"phase 28: {arch}: {bad} non-finite "
+                                 "decode logits")
+        out[arch] = {"params": T.param_count(model), "layers": cfg.n_layers,
+                     "forward_tokens_per_s": ARCH_BATCH * ARCH_SEQ / t_fwd,
+                     "loss": float(loss), "peak_gb": peak,
+                     "decode_tokens_per_s": ARCH_BATCH * ARCH_DECODE / t_dec}
+        moe = ""
+        if cfg.moe is not None:
+            moe = f", dropped share {float(metrics['dropped_frac']):.4f}"
+        print(f"phase 28: {arch} at full width ({cfg.n_layers} layers"
+              f"{', cut' if cut else ', whole'}; {out[arch]['params']:,} "
+              f"parameters, {weights_gb:.2f} GB, drawn in {t_init:.1f} s) on "
+              f"{card}: forward + loss_fn on {ARCH_BATCH} x {ARCH_SEQ} "
+              f"tokens finite, loss {float(loss):.4f}{moe}; forward "
+              f"{t_fwd * 1e3:.1f} ms, {out[arch]['forward_tokens_per_s']:.1f}"
+              f" tokens/s; peak memory {peak:.2f} GB; {ARCH_DECODE} greedy "
+              f"decode steps of {ARCH_BATCH} rows "
+              f"({'ServeEngine, contiguous' if served else 'decode_step'}) "
+              f"finite: {out[arch]['decode_tokens_per_s']:.1f} tokens/s "
+              f"({t_dec * 1e3:.1f} ms with prefill)", flush=True)
+        del model, batch, loss, metrics
+        torch.cuda.empty_cache()
+    return out
+
+
+def _arch_run(torch, cfg, model, batch, tap, dev):
+    """Forward logits, loss and CPU_DECODE decode steps fed the batch's
+    tokens, each with its MoE calls' routing (``MoETap.routes``)."""
+    from repro_torch.nn import transformer as T
+
+    def call(fn):
+        tap.routes = []
+        out = fn()
+        routes, tap.routes = tap.routes, None
+        return out, [(e.cpu(), k.cpu()) for e, k in routes]
+
+    (logits, _), routes_f = call(lambda: T.forward(
+        model, cfg, batch["tokens"], positions=batch.get("positions"),
+        vision_embeds=batch.get("vision_embeds"),
+        encoder_frames=batch.get("encoder_frames")))
+    loss, _ = T.loss_fn(model, cfg, batch)
+    B = batch["tokens"].shape[0]
+    cache = T.init_cache(cfg, B, CPU_DECODE + 1, device=dev)
+    enc = (T._encoder_forward(model, cfg, batch["encoder_frames"])
+           if cfg.encoder is not None else None)
+    steps = []
+    for t in range(CPU_DECODE):
+        pos = (torch.full((B, 3, 1), t, dtype=torch.long, device=dev)
+               if cfg.mrope_sections is not None else None)
+        (lg, cache), routes = call(lambda: T.decode_step(
+            model, cfg, cache, batch["tokens"][:, t:t + 1], positions=pos,
+            enc_out=enc))
+        steps.append((lg[:, 0].cpu(), routes))
+    return (logits.cpu(), routes_f), float(loss), steps
+
+
+def phase_arch_card_cpu(torch, dev, card) -> dict:
+    """All ten architectures at smoke shapes, the same weights on the card
+    and on the CPU: forward logits, loss and CPU_DECODE decode steps, at
+    fp32 (CPU_FP32_RTOL of each row's largest |logit|; decode steps
+    CPU_FP32_DECODE_RTOL) and bf16 (DEV_ULPS bf16 ulps of it).  A row whose
+    MoE routing (an expert chosen, a slot kept) differs between the two
+    runs, at that step or an earlier one, is excused and named."""
+    import dataclasses
+
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.nn import transformer as T
+
+    cpu = torch.device("cpu")
+    tap = MoETap(torch)
+    out = {"worst_fp32": 0.0, "worst_fp32_decode": 0.0,
+           "worst_bf16_ulps": 0.0, "excused": []}
+    try:
+        for arch in sorted(ARCHS):
+            for dtype in ("fp32", "bf16"):
+                cfg = ARCHS[arch].smoke()
+                if dtype == "fp32":
+                    cfg = dataclasses.replace(cfg, activ_dtype=torch.float32)
+                model_c = T.init(cfg, torch.Generator().manual_seed(5), cpu)
+                model_g = T.init(cfg, torch.Generator().manual_seed(5),
+                                 cpu).to(dev)
+                batch_c = arch_inputs(torch, cfg, 2, 16, cpu, seed=6)
+                batch_g = {k: v.to(dev) for k, v in batch_c.items()}
+                (lc, rc), loss_c, steps_c = _arch_run(torch, cfg, model_c,
+                                                      batch_c, tap, cpu)
+                (lg, rg), loss_g, steps_g = _arch_run(torch, cfg, model_g,
+                                                      batch_g, tap, dev)
+                pairs = [(lc, lg, rc, rg, "forward", False)] + [
+                    (a, b, ra, rb, f"decode step {t}", True)
+                    for t, ((a, ra), (b, rb)) in enumerate(zip(steps_c,
+                                                               steps_g))]
+                tainted = torch.zeros(2, dtype=torch.bool)
+                for want, got, ra, rb, what, decode in pairs:
+                    changed = (MoETap.changed_rows(ra, rb) if ra
+                               else torch.zeros(2, dtype=torch.bool))
+                    if decode:  # a row's cache carries a difference on
+                        tainted |= changed
+                        changed = tainted
+                    want = want.reshape(2, -1, cfg.vocab)
+                    got = got.reshape(2, -1, cfg.vocab)
+                    top = want.abs().amax(-1)
+                    if dtype == "fp32":
+                        d = ((got - want).abs().amax(-1) / top).amax(-1)
+                        limit = (CPU_FP32_DECODE_RTOL if decode
+                                 else CPU_FP32_RTOL)
+                        key = "worst_fp32_decode" if decode else "worst_fp32"
+                    else:
+                        ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+                        d = ((got - want).abs().amax(-1) / ulp).amax(-1)
+                        limit, key = DEV_ULPS, "worst_bf16_ulps"
+                    for b in range(2):
+                        if float(d[b]) > limit and changed[b]:
+                            out["excused"].append(
+                                f"{arch} {dtype} {what} row {b}: "
+                                f"{float(d[b]):.3g}")
+                            d[b] = 0.0
+                    if float(d.max()) > limit:
+                        raise AssertionError(
+                            f"phase 29: {arch} {dtype} {what}: card and CPU "
+                            f"differ by {float(d.max()):.3g} "
+                            f"({'of' if dtype == 'fp32' else 'bf16 ulps of'}"
+                            f" the row's largest |logit|) > {limit}")
+                    out[key] = max(out[key], float(d.max()))
+                rtol = CPU_FP32_RTOL if dtype == "fp32" else 1e-2
+                if abs(loss_g - loss_c) > rtol * abs(loss_c):
+                    raise AssertionError(f"phase 29: {arch} {dtype}: loss "
+                                         f"{loss_g} on the card, {loss_c} on "
+                                         "the CPU")
+                del model_g
+    finally:
+        tap.close()
+    torch.cuda.empty_cache()
+    print(f"phase 29: all {len(ARCHS)} architectures at smoke shapes, the "
+          f"same weights on {card} and on the CPU: forward logits, loss and "
+          f"{CPU_DECODE} decode steps; fp32 forward within "
+          f"{out['worst_fp32']:.3g} of each row's largest |logit| (limit "
+          f"{CPU_FP32_RTOL}), decode steps within "
+          f"{out['worst_fp32_decode']:.3g} (limit {CPU_FP32_DECODE_RTOL}); "
+          f"bf16 within {out['worst_bf16_ulps']:.2f} ulps of it (limit "
+          f"{DEV_ULPS}) on rows the two runs route alike; rows routed "
+          f"otherwise past the limit: {len(out['excused'])} "
+          f"[{'; '.join(out['excused'])}]", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3298,6 +3866,17 @@ def main() -> int:
     nvsa_run = phase_nvsa(torch, dev, rs, card)
     rt_run = phase_runtime(torch, dev, rs, fd, card)
     trained = phase_train(torch, dev, rs, cc, card)
+    granite = phase_granite(torch, dev, fd, card)
+    starcoder = phase_starcoder(torch, dev, fd, card)
+    phase_arch_full(torch, dev, card)
+    phase_arch_card_cpu(torch, dev, card)
+    cfg_times = {
+        GRANITE: phase_fd_timing(torch, dev, fd, granite["lens"], card, g=8,
+                                 rep=3, dh=64, kvs=("bf16",), phase=30,
+                                 gate=False)["bf16"],
+        STARCODER: phase_fd_timing(torch, dev, fd, starcoder["lens"], card,
+                                   g=2, rep=12, dh=128, kvs=("bf16",),
+                                   phase=30, gate=False)["bf16"]}
 
     src = "src/repro_torch/kernels/resonator_step/csrc/resonator_step.cu"
     kernels = [
@@ -3338,6 +3917,14 @@ def main() -> int:
          **({"runtime_launches": rt_run["launches"]["flash_decode"]}
             if kv == "bf16" else {})}
         for kv in ("bf16", "int8")
+    ] + [
+        {"name": f"flash_decode[bf16, {arch}]", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu",
+         "replaces": "src/repro/kernels/flash_decode/kernel.py:87",
+         "launches": run["launches"],
+         "max_abs_err": fd_err[f"{arch}, bf16"], **cfg_times[arch],
+         "shape": "B 32, G {}, rep {}, dh {}".format(*FD_CONFIG_SHAPES[arch])}
+        for arch, run in ((GRANITE, granite), (STARCODER, starcoder))
     ] + [
         {"name": "circconv_rows", "route": "cuda",
          "source": "src/repro_torch/kernels/circconv/csrc/circconv.cu",

@@ -22,6 +22,6 @@ def smoke() -> ModelConfig:
         d_ff=128, vocab=512, head_dim=16, rope_theta=5e5, remat=False)
 
 
-SPEC = ArchSpec("llama3.2-3b", full, smoke,
+SPEC = ArchSpec("llama3.2-3b", "dense", full, smoke,
                 source="hf:meta-llama/Llama-3.2-3B (untied head, no llama3 "
                        "RoPE scaling, as the reference config)")

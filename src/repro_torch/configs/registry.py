@@ -1,17 +1,19 @@
 """Arch registry: ``--arch <id>`` resolution for ``launch/`` and the tests.
 
-The port holds the architectures whose every block it can run; the others
-wait for ROADMAP Queue A item 2 (``nn/moe.py``, ``nn/mamba.py``,
-``nn/xlstm.py``, M-RoPE, the encoder) and are not listed here.
+All ten of the reference's architectures, with its full and smoke configs.
 """
-from repro_torch.configs import llama3_2_3b
+from repro_torch.configs import (dbrx_132b, granite_moe_3b_a800m,
+                                 jamba_1_5_large_398b, llama3_2_3b,
+                                 minicpm_2b, qwen2_5_32b, qwen2_vl_72b,
+                                 starcoder2_3b, whisper_small, xlstm_125m)
 
-ARCHS = {m.SPEC.arch_id: m.SPEC for m in (llama3_2_3b,)}
+ARCHS = {m.SPEC.arch_id: m.SPEC for m in (
+    qwen2_vl_72b, granite_moe_3b_a800m, dbrx_132b, llama3_2_3b, minicpm_2b,
+    qwen2_5_32b, starcoder2_3b, xlstm_125m, whisper_small,
+    jamba_1_5_large_398b)}
 
 
 def get(arch_id: str):
     if arch_id not in ARCHS:
-        raise KeyError(f"unknown arch {arch_id!r}; the port has "
-                       f"{sorted(ARCHS)} (the reference's other archs wait "
-                       "for ROADMAP Queue A item 2)")
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCHS)}")
     return ARCHS[arch_id]

@@ -69,34 +69,38 @@ def qtensor_from_reference(qt, device=DEFAULT_DEVICE) -> QTensor:
 def lm_params_from_reference(np_params: dict, cfg, device=DEFAULT_DEVICE):
     """The reference's ``transformer.init`` tree (numpy leaves; ``blocks`` a
     list over pattern positions whose leaves are stacked ``[P, ...]`` over
-    periods) as the port's :class:`repro_torch.nn.transformer.LM` on
-    ``device``.  Layer ``p * period + bi`` takes ``blocks[bi][...][p]``.
-    Matmul weights (embedding and head included) are stored in
-    ``cfg.activ_dtype``, as the reference casts them on every call; norm
-    scales and biases stay float32."""
+    periods; ``enc_blocks`` likewise over the encoder's layers) as the
+    port's :class:`repro_torch.nn.transformer.LM` on ``device``.  Layer
+    ``p * period + bi`` takes ``blocks[bi][...][p]``.  Each leaf is stored
+    in :func:`~repro_torch.nn.transformer.stored_dtype`: fp32 for norms
+    and Mamba's ``A_log`` (which the reference reads without a cast),
+    ``cfg.activ_dtype`` for every other leaf (which it casts on each use)."""
     from repro_torch.nn import transformer as T
 
     dev = resolve(device)
 
-    def leaf(a, dtype):
-        return torch.from_numpy(np.array(a, np.float32)).to(dtype).to(dev)
+    def leaf(a, path, index=None):
+        a = np.array(a if index is None else np.asarray(a)[index], np.float32)
+        return torch.from_numpy(a).to(T.stored_dtype(cfg, path)).to(dev)
 
-    def tree(t, dtype, index=None):
-        return {k: tree(v, dtype, index) if isinstance(v, dict)
-                else leaf(v if index is None else np.asarray(v)[index], dtype)
-                for k, v in t.items()}
+    def tree(t, path, index=None):
+        return {k: tree(v, path + (k,), index) if isinstance(v, dict)
+                else leaf(v, path + (k,), index) for k, v in t.items()}
 
-    wd = cfg.activ_dtype
-    blocks = []
-    for layer in range(cfg.n_layers):
-        period, bi = divmod(layer, cfg.period)
-        src = np_params["blocks"][bi]
-        blocks.append({k: tree(v, torch.float32 if k.startswith("ln") else wd,
-                               period) for k, v in src.items()})
+    def stack(src, n, period):
+        return [tree(src[i % period], (), i // period) for i in range(n)]
+
+    encoder = None
+    if cfg.encoder is not None:
+        encoder = {"blocks": stack(np_params["enc_blocks"],
+                                   cfg.encoder.n_layers, 1),
+                   "ln": tree(np_params["enc_ln"], ("enc_ln",)),
+                   "pos": leaf(np_params["enc_pos"], ("enc_pos",))}
     head = np_params.get("lm_head")
-    return T.LM(cfg, leaf(np_params["embed"], wd), blocks,
-                tree(np_params["final_ln"], torch.float32),
-                None if head is None else leaf(head, wd))
+    return T.LM(cfg, leaf(np_params["embed"], ("embed",)),
+                stack(np_params["blocks"], cfg.n_layers, cfg.period),
+                tree(np_params["final_ln"], ("final_ln",)),
+                None if head is None else leaf(head, ("lm_head",)), encoder)
 
 
 def mimonet_params_from_reference(np_params: dict, device=DEFAULT_DEVICE):

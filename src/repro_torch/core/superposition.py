@@ -10,6 +10,7 @@ their ``VSAConfig``, as the reference does.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import vsa
 from repro_torch.device import DEFAULT_DEVICE
@@ -49,10 +50,33 @@ def unbind_hidden(hidden: torch.Tensor, keys: torch.Tensor,
     return vsa.unbind(hidden[:, None], keys[None, :, None, :], cfg)
 
 
-def mimo_lm_logits(params, cfg, tokens, keys, blocks: int = 8,
-                   carrier_rms: float | None = None):
-    """S token streams through ONE transformer pass: needs the full-sequence
-    forward, which the port does not have yet."""
-    raise NotImplementedError(
-        "mimo_lm_logits runs the full-sequence transformer forward, which "
-        "the port lacks (ROADMAP Queue A item 2)")
+def mimo_lm_logits(model, cfg, tokens: torch.Tensor, keys: torch.Tensor,
+                   blocks: int = 8, carrier_rms: float | None = None):
+    """Serve S_streams token batches through ONE backbone pass.
+
+    ``model`` is the port's :class:`repro_torch.nn.transformer.LM` of
+    ``cfg``.  tokens: [N, S_streams, T] -> logits [N, S_streams, T, vocab]
+    in ``cfg.activ_dtype``.  ``carrier_rms`` defaults to ``2 * n_layers``:
+    the bundle is amplified past the ~2 sublayer additions of O(1) RMS that
+    every layer of the pre-norm residual stack contributes, which keeps the
+    streams separable through an untrained backbone (the reference's
+    choice).
+    """
+    from repro_torch.nn import transformer as T
+
+    if carrier_rms is None:
+        carrier_rms = 2.0 * cfg.n_layers
+    N, S_str, Tlen = tokens.shape
+    emb = F.embedding(tokens.reshape(N * S_str, Tlen).long(),
+                      model.embed.to(cfg.activ_dtype))
+    emb = emb.reshape(N, S_str, Tlen, cfg.d_model)
+    x = superpose_embeddings(emb, keys, blocks,
+                             carrier_rms=carrier_rms).to(cfg.activ_dtype)
+    positions = torch.arange(Tlen, device=x.device)[None].expand(N, Tlen)
+    with torch.no_grad():
+        for i, blk in enumerate(model.blocks):
+            x, _ = T._apply_block(blk, cfg.kind(i), cfg, x, positions, None)
+        x = T._norm(cfg, model.final_ln, x)
+    per_stream = unbind_hidden(x, keys, blocks)  # [N, S_str, T, d]
+    head = model.head.to(cfg.activ_dtype)
+    return per_stream.to(cfg.activ_dtype) @ head

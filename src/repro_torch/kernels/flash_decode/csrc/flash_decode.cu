@@ -74,7 +74,7 @@ namespace {
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kVals = 8;  // K/V values a lane holds of one row
-constexpr int kMaxRep = 8;
+constexpr int kMaxRep = 16;
 constexpr int kMaxSplits = 8;  // the portable cluster size
 constexpr int kRowsMax = 512;  // positions whose pool rows are staged at once
 constexpr float kNeg = -1e30f;
@@ -151,7 +151,8 @@ struct Shape {
   // A lane's kNv partial scores (heads padded to a power of two) become,
   // summed over the row's lanes, kHeld sums a lane, each shared by kShare
   // lanes, of kHeadsHeld heads.
-  static constexpr int kRepPow = REP <= 1 ? 1 : REP <= 2 ? 2 : REP <= 4 ? 4 : 8;
+  static constexpr int kRepPow =
+      REP <= 1 ? 1 : REP <= 2 ? 2 : REP <= 4 ? 4 : REP <= 8 ? 8 : 16;
   static constexpr int kNv = kDepth * kRepPow;
   static constexpr int kHeld = kNv > kLanesPerRow ? kNv / kLanesPerRow : 1;
   static constexpr int kShare = kNv < kLanesPerRow ? kLanesPerRow / kNv : 1;
@@ -160,9 +161,12 @@ struct Shape {
       kLanesPerRow == 16 ? 4 : kLanesPerRow == 8 ? 3 : kLanesPerRow == 4 ? 2 : 1;
   static constexpr int kKV = kDepth * 32 * kChunk;  // K (or V) of a stage
   static constexpr int kStage = 2 * kKV + (QUANT ? 2 * kBatch * 4 : 0);
-  static constexpr int kRing = kWarps * kStages * kStage;  // dynamic smem
-  // after the loop a warp's ring holds its acc for the block's merge
-  static_assert(kStages * kStage >= REP * DH * 4, "ring too small");
+  // A warp's share of the ring: its stages, and after the loop its acc
+  // for the block's merge (the larger at rep 12 and 16).
+  static constexpr int kWarpRing =
+      kStages * kStage > REP * DH * 4 ? kStages * kStage : REP * DH * 4;
+  static constexpr int kRing = kWarps * kWarpRing;  // dynamic smem
+  static_assert(kWarpRing % 16 == 0, "a warp's ring must stay 16-byte aligned");
 };
 
 // Starts one lane's copies of the batch at `base` into the ring stage at
@@ -234,7 +238,7 @@ flash_decode_kernel(const float* __restrict__ q,        // [B, G, rep, DH]
   const int g = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int slot = lane / kLanesPerRow, c = lane % kLanesPerRow;
-  unsigned char* own = ring + warp * kStages * Sh::kStage;  // this warp's
+  unsigned char* own = ring + warp * Sh::kWarpRing;  // this warp's
 
   // This rank's positions [start, end) of the row's live window.
   const int len = max(0, min(kv_lens[b], W * bs));
@@ -463,7 +467,7 @@ flash_decode_kernel(const float* __restrict__ q,        // [B, G, rep, DH]
     for (int w = 0; w < kWarps; ++w) {
       const float e = expf(wm[w][r] - mx);
       const float* wa =
-          reinterpret_cast<const float*>(ring + w * kStages * Sh::kStage);
+          reinterpret_cast<const float*>(ring + w * Sh::kWarpRing);
       sl = fmaf(wl[w][r], e, sl);
       sa = fmaf(wa[idx], e, sa);
     }
@@ -550,6 +554,7 @@ int launch_rep(const float* q, const void* k, const void* v, const float* ks,
   switch (rep) {
     FD_REP(1) FD_REP(2) FD_REP(3) FD_REP(4)
     FD_REP(5) FD_REP(6) FD_REP(7) FD_REP(8)
+    FD_REP(12) FD_REP(16)
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -573,7 +578,8 @@ int launch_dh(const float* q, const void* k, const void* v, const float* ks,
 extern "C" {
 
 // Launches one flash_decode on `stream`: a grid of (splits, G, B) blocks in
-// clusters of `splits`.  dh is 16, 32, 64 or 128; rep 1..8; splits 1..8;
+// clusters of `splits`.  dh is 16, 32, 64 or 128; rep 1..8, 12 or 16 (the
+// wrapper pads another rep up to 16 with zero query heads); splits 1..8;
 // the pools 16-byte aligned; k_scale / v_scale are read only when
 // quant != 0.  nbp is the number of physical blocks: a table id outside
 // [0, nbp) is masked like a position past kv_lens, never read.  Returns

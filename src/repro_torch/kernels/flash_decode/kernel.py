@@ -22,7 +22,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_decode.ref import check_scales
 
 HEAD_DIMS = (16, 32, 64, 128)  # head widths the source instantiates
-MAX_REP = 8  # query heads per KV head the kernel's accumulator holds
+# Query heads per KV head the source instantiates; another rep up to MAX_REP
+# runs at the next one, its query heads padded with zero rows (starcoder2-3b
+# has rep 12, the ten reference configs 1, 3, 5, 6, 8 and 12).
+REPS = (1, 2, 3, 4, 5, 6, 7, 8, 12, 16)
+MAX_REP = REPS[-1]
 _GRID_Y = 65535
 MAX_SPLITS = 8  # blocks of a cluster: the portable cluster size
 # Blocks per SM that split_count aims for.  Four fit (48-52 KB of shared
@@ -52,6 +56,15 @@ def tile(dh: int, rep: int) -> int:
     """Positions one warp takes at once (``Shape::kBatch``): a split's
     length is rounded up to it."""
     return (4 if rep <= 4 else 2) * (256 // dh)
+
+
+def launch_rep(rep: int) -> int:
+    """The instantiated rep a launch of ``rep`` query heads per KV head
+    runs at: ``rep`` itself, or the next one of :data:`REPS`."""
+    if not 1 <= rep <= MAX_REP:
+        raise ValueError(f"{rep} query heads per KV head; the kernel takes "
+                         f"1..{MAX_REP}")
+    return next(r for r in REPS if r >= rep)
 
 
 def split_range(length: int, splits: int, rank: int, span: int) -> tuple:
@@ -119,7 +132,9 @@ def flash_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     ``kv_lens`` is clamped to [0, W * bs] in the kernel, and a block id
     outside [0, NBP) in a row's live window is masked, never read.
     ``splits`` (1..MAX_SPLITS) overrides :func:`split_count`'s choice of
-    blocks per (row, KV head)."""
+    blocks per (row, KV head).  A rep the source does not instantiate runs
+    at :func:`launch_rep`'s, in the same single launch, and the padded
+    heads' outputs are dropped."""
     from repro_torch.kernels.flash_decode import ops
 
     check_scales(k_pool, k_scale, v_scale)
@@ -148,9 +163,7 @@ def flash_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                          f"{sorted(map(str, devs))}")
     if dh not in HEAD_DIMS:
         raise ValueError(f"head_dim {dh} not in {HEAD_DIMS}")
-    if not 1 <= rep <= MAX_REP:
-        raise ValueError(f"{rep} query heads per KV head; the kernel takes "
-                         f"1..{MAX_REP}")
+    run_rep = launch_rep(rep)
     if min(G, bs, W, nbp) < 1 or B > _GRID_Y:
         raise ValueError(f"need G, bs, W, NBP >= 1 and B <= {_GRID_Y}, got "
                          f"B={B} G={G} bs={bs} W={W} NBP={nbp}")
@@ -162,9 +175,12 @@ def flash_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
         raise ValueError("pool or table too large for 32-bit positions")
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError("the K/V pools must be 16-byte aligned")
-    out = torch.empty((B, G, rep, dh), dtype=torch.float32, device=q.device)
+    if run_rep != rep:  # zero query heads up to the instantiated rep
+        q = torch.cat([q, q.new_zeros((B, G, run_rep - rep, dh))], dim=2)
+    out = torch.empty((B, G, run_rep, dh), dtype=torch.float32,
+                      device=q.device)
     if B == 0:
-        return out
+        return out[:, :, :rep]
     lib = _lib()
     with torch.cuda.device(q.device):
         if splits is None:
@@ -176,9 +192,9 @@ def flash_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
             k_scale.data_ptr() if quantized else None,
             v_scale.data_ptr() if quantized else None,
             table.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-            B, G, rep, nbp, bs, W, dh, int(quantized), splits, stream)
+            B, G, run_rep, nbp, bs, W, dh, int(quantized), splits, stream)
     if rc != 0:
         raise RuntimeError(f"flash_decode launch failed: CUDA error {rc} "
                            f"({lib.flash_decode_error_string(rc).decode()})")
     ops.launches += 1
-    return out
+    return out if run_rep == rep else out[:, :, :rep].contiguous()

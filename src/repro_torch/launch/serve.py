@@ -6,9 +6,10 @@ new requests are slotted into the fixed decode batch as old ones finish.
 
 Two device layouts behind one API:
 
-  * contiguous (default): one ``[layers, slots, max_len, ...]`` KV cache,
-    one-token prefill (the whole slot batch decoded, only the target slot
-    written);
+  * contiguous (default): the stacked caches of
+    :func:`repro_torch.nn.transformer.init_cache` (KV, Mamba and xLSTM
+    state), one-token prefill (the whole slot batch decoded, only the
+    target slot written) — the layout of the stateful block kinds;
   * paged (``paged=PagedConfig(...)``): a shared block pool + per-slot
     block tables (:mod:`repro_torch.lm.paging`), chunked prefill (one call
     per ``prefill_chunk`` tokens), decode attention through the
@@ -112,6 +113,10 @@ class ServeEngine:
             return
         self.cache = T.init_cache(cfg, batch_slots, max_len,
                                   device=self.device)
+        # A slot's pristine state, for slot reuse: not zeros (the xLSTM
+        # stabiliser m starts at -1e9), so it is sliced from a fresh cache,
+        # as the reference does; one row serves every slot.
+        self._fresh_cache = T.init_cache(cfg, 1, max_len, device=self.device)
 
     # -- contiguous layout -------------------------------------------------
 
@@ -130,10 +135,12 @@ class ServeEngine:
         return self._decode_masked(tok, act)
 
     def _reset_slot(self, slot: int) -> None:
-        """A slot's cache row back to the fresh state (zeros, length 0), in
-        place: O(row), not O(cache)."""
-        for leaf in self.cache.values():
-            leaf[:, slot] = 0
+        """A slot's cache row back to a fresh cache's, in place: O(row),
+        not O(cache)."""
+        for per, fresh in zip(self.cache, self._fresh_cache):
+            for name, leaves in per.items():
+                for k, leaf in leaves.items():
+                    leaf[:, slot] = fresh[name][k][:, 0]
 
     # -- capacity ----------------------------------------------------------
 

@@ -14,9 +14,11 @@ threads the stacked KV *pool* (shared physical blocks) plus a block
     so the emitted logits equal the token-by-token path.
 
 The pool is written in place (the reference donates it).  Paging takes
-attention-only stacks: :func:`check_paging_supported` rejects stateful
-block patterns (mamba / xLSTM / cross-attention / encoders) with the
-reason, as the reference does.
+attention-only stacks, with an MLP or MoE half (``attn_mlp`` /
+``attn_moe``; each layer's kind from ``block_pattern``):
+:func:`check_paging_supported` rejects stateful block patterns (mamba /
+xLSTM / cross-attention / encoders) and M-RoPE with the reason, as the
+reference does.
 """
 from __future__ import annotations
 
@@ -25,7 +27,6 @@ import torch
 from repro_torch.device import DEFAULT_DEVICE, resolve
 from repro_torch.nn import layers as L
 from repro_torch.nn import transformer as T
-from repro_torch.nn.transformer import _ffn_half
 
 
 def paging_unsupported_reason(cfg) -> str | None:
@@ -55,12 +56,16 @@ def init_pool(cfg, num_blocks: int, block_size: int,
     """Per-layer pools, stacked: every leaf is ``[n_layers, num_blocks + 1,
     block_size, ...]`` (the +1 is each layer's trash block)."""
     check_paging_supported(cfg)
-    T.check_supported(cfg)
     dev = resolve(device)
     dtype = torch.int8 if cfg.kv_cache_dtype == "int8" else torch.bfloat16
     one = L.init_kv_pool(num_blocks, block_size, cfg.attn_cfg(), dtype, "meta")
     return {k: torch.zeros((cfg.n_layers,) + tuple(v.shape), dtype=v.dtype,
                            device=dev) for k, v in one.items()}
+
+
+def layer_pool(pool: dict, layer: int) -> dict:
+    """One layer's pool: views into the stacked leaves, written in place."""
+    return {k: v[layer] for k, v in pool.items()}
 
 
 def decode_step_paged(model, cfg, pool: dict, table, kv_lens, tokens, active,
@@ -72,9 +77,9 @@ def decode_step_paged(model, cfg, pool: dict, table, kv_lens, tokens, active,
     for i, blk in enumerate(model.blocks):
         h = T._norm(cfg, blk["ln1"], x)
         a, _ = L.attention_decode_paged(
-            blk["attn"], h, T.layer_cache(pool, i), cfg.attn_cfg(), table,
+            blk["attn"], h, layer_pool(pool, i), cfg.attn_cfg(), table,
             kv_lens, active, use_flash=use_flash)
-        x = _ffn_half(blk, "attn_mlp", cfg, x + a)
+        x = T._ffn_half(blk, cfg.kind(i), cfg, x + a)[0]
     return T._logits(model, cfg, x), pool
 
 
@@ -87,7 +92,7 @@ def prefill_chunk_paged(model, cfg, pool: dict, row_table, len0: int, tokens,
     for i, blk in enumerate(model.blocks):
         h = T._norm(cfg, blk["ln1"], x)
         a, _ = L.attention_prefill_paged(
-            blk["attn"], h, T.layer_cache(pool, i), cfg.attn_cfg(), row_table,
+            blk["attn"], h, layer_pool(pool, i), cfg.attn_cfg(), row_table,
             len0, count)
-        x = _ffn_half(blk, "attn_mlp", cfg, x + a)
+        x = T._ffn_half(blk, cfg.kind(i), cfg, x + a)[0]
     return T._logits(model, cfg, x), pool

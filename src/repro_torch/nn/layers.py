@@ -1,12 +1,15 @@
-"""Transformer building blocks of LM serving: norms, RoPE, GQA attention, MLPs.
+"""Transformer building blocks: norms, RoPE / M-RoPE, GQA attention, MLPs.
 
-The port of ``repro/nn/layers.py``, for attention-only serving.  Layers are
+The port of ``repro/nn/layers.py``.  Layers are
 plain functions on tensors; a layer's parameters ``p`` are a mapping of
 name to tensor (a ``dict``, or the ``ParameterDict`` / ``ModuleDict`` of
 :class:`repro_torch.nn.transformer.LM`), laid out as in the reference: a
 dense weight is ``[d_in, d_out]`` and the product is ``x @ w``.
 
-Attention comes in the two serving layouts:
+Attention comes in the full-sequence form (:func:`attention`, train /
+prefill / encoder: :func:`flash_attention`, the reference's blockwise
+online softmax over KV blocks in fp32, written out as a loop) and in the
+two serving layouts:
 
   * contiguous: a ``[B, Smax, G, dh]`` cache per layer and a dense masked
     softmax (:func:`attention_decode`);
@@ -18,9 +21,6 @@ Attention comes in the two serving layouts:
 KV caches and pools are mutable serving state (the reference donates them
 through its jitted dispatches): the port writes new KV into them in place
 with ``index_put_`` and returns the same dicts.
-
-Not ported yet (ROADMAP Queue A item 2): ``flash_attention`` and
-``attention`` (the training / full-sequence forward) and M-RoPE.
 """
 from __future__ import annotations
 
@@ -82,24 +82,44 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def _section_ids(sections: tuple, n: int, device) -> torch.Tensor:
+    """``jnp.repeat(arange(3), sections, total_repeat_length=n)``: the
+    position stream of each frequency (cut at ``n``, or the last stream
+    repeated up to it)."""
+    ids = [i for i, k in enumerate(sections) for _ in range(k)][:n]
+    ids += [ids[-1]] * (n - len(ids))
+    return torch.tensor(ids, dtype=torch.long, device=device)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, sections: tuple,
+                theta: float = 1e6) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: 3 position streams (t, h, w) own disjoint
+    frequency sections of the head dim.  x: [B, S, H, dh]; positions3:
+    [B, 3, S]; ``sections`` sum to dh / 2 (e.g. (16, 24, 24) for dh = 128)."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)  # [dh/2]
+    sec = _section_ids(sections, dh // 2, x.device)
+    pos = positions3.float()[:, sec, :]  # [B, dh/2, S]
+    ang = pos.transpose(1, 2) * freqs  # [B, S, dh/2]
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Dense projections
 # ---------------------------------------------------------------------------
 
-def _normal(generator: torch.Generator, shape) -> torch.Tensor:
-    return torch.randn(shape, generator=generator, device=generator.device,
-                       dtype=torch.float32)
-
-
-def _dense_init(generator, d_in: int, d_out: int, bias: bool = False,
-                scale: float | None = None, dtype=torch.float32):
-    """``{"w": [d_in, d_out]}`` (+ ``"b"``) drawn on ``generator``'s device
-    as the reference draws them (normal times ``d_in ** -0.5``), stored in
-    ``dtype``."""
+def _dense_init(draw, d_in: int, d_out: int, bias: bool = False,
+                scale: float | None = None):
+    """``{"w": [d_in, d_out]}`` (+ zero ``"b"``), normal times ``d_in **
+    -0.5`` as the reference draws them; ``draw(shape, scale)`` makes a leaf
+    (see :func:`repro_torch.nn.transformer.init`)."""
     scale = scale if scale is not None else (1.0 / d_in) ** 0.5
-    p = {"w": (_normal(generator, (d_in, d_out)) * scale).to(dtype)}
+    p = {"w": draw((d_in, d_out), scale)}
     if bias:
-        p["b"] = torch.zeros((d_out,), dtype=dtype, device=generator.device)
+        p["b"] = draw((d_out,), None, fill=0.0)
     return p
 
 
@@ -122,7 +142,7 @@ class AttnConfig:
     head_dim: int | None = None
     qkv_bias: bool = False
     rope_theta: float = 1e4
-    mrope_sections: tuple | None = None  # set for qwen2-vl (not ported)
+    mrope_sections: tuple | None = None  # set for qwen2-vl
     causal: bool = True
     flash_block: int = 1024
 
@@ -131,33 +151,93 @@ class AttnConfig:
         return self.head_dim or self.d_model // self.n_heads
 
 
-def init_attention(generator, cfg: AttnConfig, dtype=torch.float32):
+def init_attention(draw, cfg: AttnConfig):
     dh = cfg.dh
     return {
-        "q": _dense_init(generator, cfg.d_model, cfg.n_heads * dh,
-                         cfg.qkv_bias, dtype=dtype),
-        "k": _dense_init(generator, cfg.d_model, cfg.n_kv_heads * dh,
-                         cfg.qkv_bias, dtype=dtype),
-        "v": _dense_init(generator, cfg.d_model, cfg.n_kv_heads * dh,
-                         cfg.qkv_bias, dtype=dtype),
-        "o": _dense_init(generator, cfg.n_heads * dh, cfg.d_model,
-                         dtype=dtype),
+        "q": _dense_init(draw, cfg.d_model, cfg.n_heads * dh, cfg.qkv_bias),
+        "k": _dense_init(draw, cfg.d_model, cfg.n_kv_heads * dh,
+                         cfg.qkv_bias),
+        "v": _dense_init(draw, cfg.d_model, cfg.n_kv_heads * dh,
+                         cfg.qkv_bias),
+        "o": _dense_init(draw, cfg.n_heads * dh, cfg.d_model),
     }
 
 
 def _qkv(p, x: torch.Tensor, cfg: AttnConfig, positions) -> tuple:
-    if cfg.mrope_sections is not None:
-        raise NotImplementedError("M-RoPE is not ported yet (ROADMAP Queue A "
-                                  "item 2, the rest of the LM path)")
+    """q [B, S, H, dh], k/v [B, S, G, dh], rotated by RoPE at ``positions``
+    [B, S] (none when None) or by M-RoPE at ``positions`` [B, 3, S]."""
     B, S, _ = x.shape
     dh = cfg.dh
     q = dense(p["q"], x).reshape(B, S, cfg.n_heads, dh)
     k = dense(p["k"], x).reshape(B, S, cfg.n_kv_heads, dh)
     v = dense(p["v"], x).reshape(B, S, cfg.n_kv_heads, dh)
-    if positions is not None:
+    if cfg.mrope_sections is not None:
+        if positions is None:
+            raise ValueError("M-RoPE needs explicit positions [B, 3, S]")
+        q = apply_mrope(q, positions, cfg.mrope_sections, cfg.rope_theta)
+        k = apply_mrope(k, positions, cfg.mrope_sections, cfg.rope_theta)
+    elif positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, block: int, q_offset: int = 0
+                    ) -> torch.Tensor:
+    """Blockwise-softmax attention, the reference's loop over KV blocks.
+
+    q: [B, Sq, H, dh]; k, v: [B, Sk, G, dh] with H = G * rep (GQA; KV heads
+    repeated up to H).  Keys are padded to a multiple of ``block`` and
+    visited block by block in order, each keeping a running max, sum and
+    fp32 accumulator; masked scores are -1e30, as in the reference, so the
+    numbers are the reference's up to fp32 summation order.  Returns
+    [B, Sq, H, dh] in q's dtype.
+    """
+    B, Sq, H, dh = q.shape
+    Sk, G = k.shape[1], k.shape[2]
+    rep = H // G
+    qf = q.float() * dh ** -0.5
+    if rep > 1:  # each KV head repeated rep times: [B, Sk, H, dh]
+        k = k[:, :, :, None].expand(B, Sk, G, rep, dh).reshape(B, Sk, H, dh)
+        v = v[:, :, :, None].expand(B, Sk, G, rep, dh).reshape(B, Sk, H, dh)
+    dev = q.device
+    q_pos = q_offset + torch.arange(Sq, device=dev)
+    m = torch.full((B, Sq, H), _NEG, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, Sq, H), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Sq, H, dh), dtype=torch.float32, device=dev)
+    neg = torch.full((), _NEG, dtype=torch.float32, device=dev)
+    for j0 in range(0, Sk, block):
+        kj = k[:, j0:j0 + block].float()
+        vj = v[:, j0:j0 + block].float()
+        n = kj.shape[1]
+        if n < block:  # the padded tail of the last block
+            kj = torch.nn.functional.pad(kj, (0, 0, 0, 0, 0, block - n))
+            vj = torch.nn.functional.pad(vj, (0, 0, 0, 0, 0, block - n))
+        s = torch.einsum("bqhd,bkhd->bqhk", qf, kj)
+        kv_pos = j0 + torch.arange(block, device=dev)
+        valid = (kv_pos < Sk)[None, :]
+        if causal:
+            valid = valid & (kv_pos[None, :] <= q_pos[:, None])
+        s = torch.where(valid[None, :, None, :], s, neg)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum("bqhk,bkhd->bqhd", p, vj)
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.to(q.dtype)
+
+
+def attention(p, x: torch.Tensor, cfg: AttnConfig,
+              positions=None) -> torch.Tensor:
+    """Full-sequence (train / prefill / encoder) attention. x: [B, S, d]."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(p, x, cfg, positions)
+    out = flash_attention(q, k, v, causal=cfg.causal,
+                          block=min(cfg.flash_block, S))
+    return dense(p["o"], out.reshape(B, S, cfg.n_heads * cfg.dh))
 
 
 def _quant_kv(t: torch.Tensor) -> tuple:
@@ -201,39 +281,52 @@ def attention_decode(p, x: torch.Tensor, cache: dict, cfg: AttnConfig,
     """Single-token decode against a contiguous cache, in place.
 
     x: [B, 1, d]; cache: {'k','v': [B, Smax, G, dh], 'len': [B]} (+
-    'k_scale','v_scale' when int8).  Writes the new KV at position
-    ``len`` of each active row (``active`` [B] bool; None = every row) and
-    advances those rows' ``len``; rows not active keep their cache.
-    Returns ``(out [B, 1, d], cache)``.
+    'k_scale','v_scale' when int8).  Every row attends as the reference's
+    does, its new KV written at position ``len`` (dropped for a row already
+    at ``Smax``); afterwards only the ``active`` rows ([B] bool; None =
+    every row) keep that write and advance ``len``, the others get their
+    old entry back (the reference's masked merge: an idle row's output
+    still feeds what the batch shares, such as MoE capacity).  No host
+    sync.  Returns ``(out [B, 1, d], cache)``.
     """
     B = x.shape[0]
     q, k_new, v_new = _qkv(p, x, cfg, positions)
+    Smax = cache["k"].shape[1]
     pos = cache["len"].long()
     rows = torch.arange(B, device=x.device)
-    if active is not None:
-        rows = rows[active]
-    at = (rows, pos[rows])
+    at = (rows, torch.clamp(pos, max=Smax - 1))
     if cache["k"].dtype == torch.int8:
         kq, ks = _quant_kv(k_new[:, 0])
         vq, vs = _quant_kv(v_new[:, 0])
-        for name, val in (("k", kq), ("v", vq), ("k_scale", ks),
-                          ("v_scale", vs)):
-            cache[name].index_put_(at, val[rows])
+        new = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    else:
+        new = {"k": k_new[:, 0], "v": v_new[:, 0]}
+    fits = (pos < Smax)[:, None, None]
+    saved = {}
+    for name, val in new.items():
+        saved[name] = cache[name][at]
+        cache[name].index_put_(at, torch.where(
+            fits, val.to(cache[name].dtype), saved[name]))
+    if "k_scale" in cache:
         k = cache["k"].float() * cache["k_scale"]
         v = cache["v"].float() * cache["v_scale"]
     else:
-        for name, val in (("k", k_new[:, 0]), ("v", v_new[:, 0])):
-            cache[name].index_put_(at, val[rows].to(cache[name].dtype))
         k, v = cache["k"].float(), cache["v"].float()
-    Smax, G = k.shape[1], k.shape[2]
+    G = k.shape[2]
     rep = cfg.n_heads // G
     qf = (q.float() * cfg.dh ** -0.5).reshape(B, 1, G, rep, cfg.dh)
     valid = torch.arange(Smax, device=x.device)[None, :] <= pos[:, None]
     out = _dense_softmax_out(qf, k, v, valid[:, None, None, None, :],
                              "bqgrd,bkgd->bqgrk", "bqgrk,bkgd->bqgrd")
     out = out.reshape(B, 1, cfg.n_heads * cfg.dh).to(x.dtype)
-    cache["len"].index_add_(0, rows, torch.ones_like(rows,
-                                                     dtype=torch.int32))
+    if active is None:
+        cache["len"].add_(1)
+    else:
+        keep = active[:, None, None]
+        for name in new:
+            cache[name].index_put_(at, torch.where(keep, cache[name][at],
+                                                   saved[name]))
+        cache["len"].add_(active.to(torch.int32))
     return dense(p["o"], out), cache
 
 
@@ -354,10 +447,10 @@ def attention_prefill_paged(p, x: torch.Tensor, pool: dict, cfg: AttnConfig,
 # MLPs
 # ---------------------------------------------------------------------------
 
-def init_swiglu(generator, d_model: int, d_ff: int, dtype=torch.float32):
-    return {"gate": _dense_init(generator, d_model, d_ff, dtype=dtype),
-            "up": _dense_init(generator, d_model, d_ff, dtype=dtype),
-            "down": _dense_init(generator, d_ff, d_model, dtype=dtype)}
+def init_swiglu(draw, d_model: int, d_ff: int):
+    return {"gate": _dense_init(draw, d_model, d_ff),
+            "up": _dense_init(draw, d_model, d_ff),
+            "down": _dense_init(draw, d_ff, d_model)}
 
 
 def _silu(x: torch.Tensor) -> torch.Tensor:
@@ -373,10 +466,9 @@ def swiglu(p, x: torch.Tensor) -> torch.Tensor:
     return dense(p["down"], h)
 
 
-def init_gelu_mlp(generator, d_model: int, d_ff: int, bias: bool = True,
-                  dtype=torch.float32):
-    return {"up": _dense_init(generator, d_model, d_ff, bias, dtype=dtype),
-            "down": _dense_init(generator, d_ff, d_model, bias, dtype=dtype)}
+def init_gelu_mlp(draw, d_model: int, d_ff: int, bias: bool = True):
+    return {"up": _dense_init(draw, d_model, d_ff, bias),
+            "down": _dense_init(draw, d_ff, d_model, bias)}
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:

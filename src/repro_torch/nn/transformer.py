@@ -1,21 +1,27 @@
-"""Model assembly: the decoder stack of LM serving.
+"""Model assembly: heterogeneous-block decoder stacks.
 
-The port of ``repro/nn/transformer.py`` for attention-only stacks
-(``block_pattern=("attn_mlp",)``, e.g. Llama 3.2 3B).  :class:`ModelConfig`
-keeps every field of the reference; a config the port cannot run yet (MoE,
-Mamba, xLSTM, cross-attention, encoders, M-RoPE, vision prefixes) raises
-``NotImplementedError`` where a model is built from it.
+The port of ``repro/nn/transformer.py``; one config drives the ten
+reference architectures.  A ``block_pattern`` (cycled over layers) names
+each layer's kind:
+
+    attn_mlp | attn_moe | attn_cross_mlp (whisper decoder) |
+    mamba_mlp | mamba_moe | mlstm | slstm
 
 The model is an ``nn.Module``, :class:`LM`: the embedding, one block per
-layer (``ln1``, ``attn``, ``ln2``, ``mlp``), ``final_ln`` and ``lm_head``.
-The reference keeps fp32 parameters and casts every matmul weight to
-``activ_dtype`` on each call; the port stores those weights (embedding and
-head included) already in ``activ_dtype``, which gives the same numbers and
-halves the bytes a bf16 decode step reads.  Norm scales stay fp32.  The
-reference's scan over stacked periods is a Python loop over layers here.
+layer (layer ``i`` is of kind ``block_pattern[i % period]``), ``final_ln``,
+``lm_head`` and, for encoder-decoder stacks, the encoder's blocks,
+``enc_ln`` and ``enc_pos``.  The reference keeps fp32 parameters and casts
+every matmul weight (and bias) to ``activ_dtype`` on each call; the port
+stores those already in ``activ_dtype``, which gives the same numbers and
+halves the bytes a bf16 step reads.  What the reference reads in fp32 stays
+fp32: norm scales and biases, and Mamba's ``A_log`` (:func:`stored_dtype`).
+The reference's scan over stacked periods is a Python loop over layers.
 
-Not ported yet (ROADMAP Queue A item 2): ``forward`` and ``loss_fn`` (the
-training / full-sequence path), stateful blocks and their caches.
+Entry points: :func:`forward` (full sequence), :func:`loss_fn` (next-token
+CE plus the MoE aux terms; evaluated, not trained here), :func:`init_cache`
+and :func:`decode_step` (one token against the contiguous caches, written in
+place for the ``active`` rows), :func:`abstract_init` and
+:func:`count_params_cfg` (shapes only).
 """
 from __future__ import annotations
 
@@ -28,12 +34,13 @@ import torch.nn.functional as F
 
 from repro_torch.device import DEFAULT_DEVICE, resolve
 from repro_torch.nn import layers as L
-
-_LATER = "ROADMAP Queue A item 2, the rest of the LM path"
+from repro_torch.nn import mamba as Mb
+from repro_torch.nn import moe as Moe
+from repro_torch.nn import xlstm as Xl
 
 
 @dataclasses.dataclass(frozen=True)
-class EncoderConfig:  # whisper-style; not ported yet
+class EncoderConfig:  # whisper-style
     n_layers: int
     d_model: int
     n_heads: int
@@ -56,12 +63,12 @@ class ModelConfig:
     mlp_kind: str = "swiglu"  # or "gelu"
     qkv_bias: bool = False
     rope_theta: float = 1e4
-    mrope_sections: tuple | None = None  # qwen2-vl (not ported)
-    vision_patches: int = 0  # qwen2-vl stub frontend (not ported)
-    moe: Any = None  # MoEConfig (nn/moe.py, not ported)
-    mamba: Any = None  # MambaConfig (nn/mamba.py, not ported)
-    xlstm: Any = None  # XLSTMConfig (nn/xlstm.py, not ported)
-    encoder: EncoderConfig | None = None  # whisper (not ported)
+    mrope_sections: tuple | None = None  # qwen2-vl
+    vision_patches: int = 0  # qwen2-vl stub frontend: patches replace prefix tokens
+    moe: Moe.MoEConfig | None = None
+    mamba: Mb.MambaConfig | None = None
+    xlstm: Xl.XLSTMConfig | None = None
+    encoder: EncoderConfig | None = None  # whisper
     tie_embeddings: bool = False
     remat: bool = True
     remat_policy: str = "full"
@@ -80,31 +87,38 @@ class ModelConfig:
                              f"of periods of {self.block_pattern}")
         return self.n_layers // self.period
 
+    def kind(self, layer: int) -> str:
+        return self.block_pattern[layer % self.period]
+
     def attn_cfg(self, causal=True) -> L.AttnConfig:
         return L.AttnConfig(self.d_model, self.n_heads, self.n_kv_heads,
                             self.head_dim, self.qkv_bias, self.rope_theta,
                             self.mrope_sections, causal=causal)
 
+    def xattn_cfg(self) -> L.AttnConfig:
+        """Cross-attention of ``attn_cross_mlp`` blocks: MHA, no bias, no
+        RoPE, not causal (queries from the decoder, K/V from the encoder)."""
+        return L.AttnConfig(self.d_model, self.n_heads, self.n_heads,
+                            causal=False)
 
-def unsupported_reason(cfg: ModelConfig) -> str | None:
-    """None when the port can build ``cfg``, else what it lacks."""
-    bad = [k for k in cfg.block_pattern if k != "attn_mlp"]
-    if bad:
-        return (f"block kinds {bad} of {cfg.block_pattern} are not ported yet"
-                " (attn_moe waits for nn/moe.py; mamba, xLSTM and "
-                "cross-attention blocks for their modules)")
-    for name in ("moe", "mamba", "xlstm", "encoder"):
-        if getattr(cfg, name) is not None:
-            return f"{name} configs are not ported yet"
-    if cfg.mrope_sections is not None or cfg.vision_patches:
-        return "M-RoPE and vision prefixes are not ported yet"
-    return None
+    def encoder_cfg(self) -> "ModelConfig":
+        """The encoder's blocks as a stack of ``attn_mlp`` of its widths."""
+        e = self.encoder
+        return dataclasses.replace(
+            self, n_layers=e.n_layers, d_model=e.d_model, n_heads=e.n_heads,
+            n_kv_heads=e.n_heads, d_ff=e.d_ff, block_pattern=("attn_mlp",),
+            mrope_sections=None)
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    reason = unsupported_reason(cfg)
-    if reason is not None:
-        raise NotImplementedError(f"{cfg.name}: {reason} ({_LATER})")
+def stored_dtype(cfg: ModelConfig, path: tuple):
+    """The dtype the port stores a parameter in, by its path of names: fp32
+    for norm parameters (``ln*``, ``final_ln``, ``enc_ln``) and ``A_log``,
+    which the reference reads without a cast; ``activ_dtype`` for the rest,
+    which the reference casts to it on every use."""
+    if path[0] in ("final_ln", "enc_ln") or any(
+            k.startswith("ln") for k in path[:-1]) or path[-1] == "A_log":
+        return torch.float32
+    return cfg.activ_dtype
 
 
 # ---------------------------------------------------------------------------
@@ -121,22 +135,33 @@ def _as_module(tree: dict) -> nn.Module:
 
 
 class LM(nn.Module):
-    """Decoder stack: ``embed`` [V, d], ``blocks[l]`` (``ln1``, ``attn``
-    with ``q``/``k``/``v``/``o`` dense weights ``[d_in, d_out]``, ``ln2``,
-    ``mlp``), ``final_ln`` and ``lm_head`` [d, V] (None when tied)."""
+    """Decoder stack: ``embed`` [V, d], ``blocks[l]`` (by kind: ``ln1``,
+    ``attn`` with ``q``/``k``/``v``/``o`` dense weights ``[d_in, d_out]``,
+    ``lnx``/``xattn``, ``mamba``, ``mlstm``, ``slstm``, ``ln2``, ``mlp`` or
+    ``moe``), ``final_ln``, ``lm_head`` [d, V] (None when tied) and, with an
+    encoder, ``enc_blocks`` / ``enc_ln`` / ``enc_pos`` [n_frames, d]."""
 
     def __init__(self, cfg: ModelConfig, embed: torch.Tensor, blocks: list,
-                 final_ln: dict, lm_head: torch.Tensor | None):
+                 final_ln: dict, lm_head: torch.Tensor | None,
+                 encoder: dict | None = None):
         super().__init__()
-        check_supported(cfg)
         if len(blocks) != cfg.n_layers:
             raise ValueError(f"{len(blocks)} blocks for {cfg.n_layers} layers")
+        if (encoder is None) != (cfg.encoder is None):
+            raise ValueError(f"{cfg.name}: the encoder's parameters must be "
+                             "given exactly when the config has an encoder")
         self.cfg = cfg
         self.embed = nn.Parameter(embed, requires_grad=False)
         self.blocks = nn.ModuleList(_as_module(b) for b in blocks)
         self.final_ln = _as_module(final_ln)
         self.lm_head = (None if lm_head is None
                         else nn.Parameter(lm_head, requires_grad=False))
+        self.enc_blocks = self.enc_ln = self.enc_pos = None
+        if encoder is not None:
+            self.enc_blocks = nn.ModuleList(_as_module(b)
+                                            for b in encoder["blocks"])
+            self.enc_ln = _as_module(encoder["ln"])
+            self.enc_pos = nn.Parameter(encoder["pos"], requires_grad=False)
 
     @property
     def head(self) -> torch.Tensor:
@@ -151,55 +176,137 @@ class LM(nn.Module):
 # Init
 # ---------------------------------------------------------------------------
 
-def _norm_init(cfg: ModelConfig, device):
-    return (L.init_rmsnorm(cfg.d_model, device) if cfg.norm == "rmsnorm"
-            else L.init_layernorm(cfg.d_model, device))
+class _Draw:
+    """Makes parameter leaves as the reference's init does, in fp32 on
+    ``device``: ``draw(shape, scale)`` a normal times ``scale``;
+    ``draw(shape, None, fill=c)`` a constant; ``fill`` a function of a
+    uniform [0, 1) draw (``uniform=True``) or of an empty tensor on the
+    device, for computed leaves.  On the ``meta`` device nothing is drawn
+    or allocated."""
+
+    def __init__(self, generator, device: torch.device):
+        self.gen, self.device = generator, device
+
+    def __call__(self, shape, scale, fill=None, uniform: bool = False):
+        shape = tuple(shape)
+        if self.device.type == "meta":
+            return torch.empty(shape, dtype=torch.float32, device="meta")
+        if scale is not None:
+            return torch.randn(shape, generator=self.gen, device=self.device,
+                               dtype=torch.float32) * scale
+        if callable(fill):
+            base = (torch.rand(shape, generator=self.gen, device=self.device)
+                    if uniform else torch.empty(shape, device=self.device))
+            return fill(base).float()
+        return torch.full(shape, float(fill), dtype=torch.float32,
+                          device=self.device)
 
 
-def _init_block(generator, cfg: ModelConfig, dtype, device) -> dict:
-    def moved(tree):
-        return {k: moved(v) if isinstance(v, dict) else v.to(device)
-                for k, v in tree.items()}
+def _norm_init(cfg: ModelConfig, d: int, device):
+    return (L.init_rmsnorm(d, device) if cfg.norm == "rmsnorm"
+            else L.init_layernorm(d, device))
 
-    attn = L.init_attention(generator, cfg.attn_cfg(), dtype)
-    if cfg.mlp_kind == "swiglu":
-        mlp = L.init_swiglu(generator, cfg.d_model, cfg.d_ff, dtype)
+
+def _init_block(draw, kind: str, cfg: ModelConfig) -> dict:
+    dev = draw.device
+    p = {"ln1": _norm_init(cfg, cfg.d_model, dev)}
+    if kind.startswith("attn"):
+        p["attn"] = L.init_attention(draw, cfg.attn_cfg())
+        if "cross" in kind:
+            p["lnx"] = _norm_init(cfg, cfg.d_model, dev)
+            p["xattn"] = L.init_attention(draw, cfg.xattn_cfg())
+    elif kind.startswith("mamba"):
+        p["mamba"] = Mb.init_mamba(draw, cfg.mamba)
+    elif kind == "mlstm":
+        p["mlstm"] = Xl.init_mlstm(draw, cfg.xlstm)
+        return p  # xLSTM blocks have no separate MLP
+    elif kind == "slstm":
+        p["slstm"] = Xl.init_slstm(draw, cfg.xlstm)
+        return p
     else:
-        mlp = L.init_gelu_mlp(generator, cfg.d_model, cfg.d_ff, dtype=dtype)
-    return {"ln1": _norm_init(cfg, device), "attn": moved(attn),
-            "ln2": _norm_init(cfg, device), "mlp": moved(mlp)}
+        raise ValueError(f"unknown block kind {kind!r}")
+    p["ln2"] = _norm_init(cfg, cfg.d_model, dev)
+    if kind.endswith("moe"):
+        p["moe"] = Moe.init_moe(draw, cfg.moe)
+    elif cfg.mlp_kind == "swiglu":
+        p["mlp"] = L.init_swiglu(draw, cfg.d_model, cfg.d_ff)
+    else:
+        p["mlp"] = L.init_gelu_mlp(draw, cfg.d_model, cfg.d_ff)
+    return p
+
+
+def cast_tree(cfg: ModelConfig, tree: dict, path: tuple = ()) -> dict:
+    """Every leaf of a parameter tree in its :func:`stored_dtype`."""
+    return {k: cast_tree(cfg, v, path + (k,)) if isinstance(v, dict)
+            else v.to(stored_dtype(cfg, path + (k,)))
+            for k, v in tree.items()}
 
 
 def init(cfg: ModelConfig, generator=0, device=DEFAULT_DEVICE) -> LM:
     """Random weights as the reference draws them (normal, times
     ``d_in ** -0.5`` for dense weights and ``d_model ** -0.5`` for the
-    embedding and head; unit norm scales), on ``device``.
+    embedding and head; the reference's constants for biases, norms and
+    Mamba's and xLSTM's gates), on ``device``.
 
     An int ``generator`` seeds a generator ON ``device``, so a full-width
-    model (3.6 G normals for Llama 3.2 3B) is drawn on the card in seconds
-    rather than on the CPU in minutes; the numbers therefore differ between
-    a CPU and a CUDA model of one seed.  A ``torch.Generator`` draws on its
-    own device, and the weights are then moved.  Parity with the reference
-    goes through :func:`repro_torch.convert.lm_params_from_reference`, not
-    through this function.
+    model is drawn on the card in seconds rather than on the CPU in
+    minutes; the numbers therefore differ between a CPU and a CUDA model of
+    one seed.  A ``torch.Generator`` draws on its own device.  ``device=
+    "meta"`` builds the shapes and dtypes only (:func:`abstract_init`).
+    Parity with the reference goes through
+    :func:`repro_torch.convert.lm_params_from_reference`, not through this
+    function.
     """
-    check_supported(cfg)
-    dev = resolve(device)
-    gen = (generator if isinstance(generator, torch.Generator)
-           else torch.Generator(device=dev).manual_seed(int(generator)))
-    wd = cfg.activ_dtype
+    dev = torch.device("meta") if str(device) == "meta" else resolve(device)
+    gen = None
+    if dev.type != "meta":
+        gen = (generator if isinstance(generator, torch.Generator)
+               else torch.Generator(device=dev).manual_seed(int(generator)))
+    draw = _Draw(gen, dev if gen is None else gen.device)
     scale = cfg.d_model ** -0.5
-    embed = (L._normal(gen, (cfg.vocab, cfg.d_model)) * scale).to(wd)
+    embed = draw((cfg.vocab, cfg.d_model), scale).to(cfg.activ_dtype)
     head = None
     if not cfg.tie_embeddings:
-        head = (L._normal(gen, (cfg.d_model, cfg.vocab)) * scale).to(wd)
-    blocks = [_init_block(gen, cfg, wd, dev) for _ in range(cfg.n_layers)]
-    return LM(cfg, embed.to(dev), blocks, _norm_init(cfg, dev),
-              None if head is None else head.to(dev))
+        head = draw((cfg.d_model, cfg.vocab), scale).to(cfg.activ_dtype)
+    blocks = [cast_tree(cfg, _init_block(draw, cfg.kind(i), cfg))
+              for i in range(cfg.n_layers)]
+    encoder = None
+    if cfg.encoder is not None:
+        e, ecfg = cfg.encoder, cfg.encoder_cfg()
+        encoder = {
+            "blocks": [cast_tree(cfg, _init_block(draw, "attn_mlp", ecfg))
+                       for _ in range(e.n_layers)],
+            "ln": _norm_init(cfg, e.d_model, draw.device),
+            "pos": draw((e.n_frames, e.d_model), 0.01).to(cfg.activ_dtype)}
+    model = LM(cfg, embed, blocks, _norm_init(cfg, cfg.d_model, draw.device),
+               head, encoder)
+    return model.to(dev)
 
 
 def param_count(model: LM) -> int:
     return sum(p.numel() for p in model.parameters())
+
+
+def abstract_init(cfg: ModelConfig) -> LM:
+    """The model's parameters as ``meta`` tensors: every shape and stored
+    dtype, nothing allocated (the 398 B config builds at once)."""
+    return init(cfg, device="meta")
+
+
+def count_params_cfg(cfg: ModelConfig) -> tuple:
+    """(total params, active-per-token params) from shapes alone, as the
+    reference counts them: active leaves out (E - top_k) / E of the expert
+    weights (``moe`` ``gate``/``up``/``down``)."""
+    total = moe_total = 0
+    for name, leaf in abstract_init(cfg).named_parameters():
+        total += leaf.numel()
+        parts = name.split(".")
+        if "moe" in parts and parts[-1] in ("gate", "up", "down"):
+            moe_total += leaf.numel()
+    active = total - moe_total
+    if cfg.moe is not None and moe_total:
+        active += moe_total * cfg.moe.top_k / cfg.moe.num_experts
+    return int(total), int(active)
 
 
 # ---------------------------------------------------------------------------
@@ -210,16 +317,57 @@ def _norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     return L.rmsnorm(p, x) if cfg.norm == "rmsnorm" else L.layernorm(p, x)
 
 
-def _embed(model: LM, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens.long(), model.embed).to(cfg.activ_dtype)
+def _embed(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
+           vision_embeds=None) -> torch.Tensor:
+    emb = F.embedding(tokens.long(), model.embed).to(cfg.activ_dtype)
+    if cfg.vision_patches and vision_embeds is not None:
+        P = cfg.vision_patches
+        emb = torch.cat([vision_embeds.to(cfg.activ_dtype), emb[:, P:]], 1)
+    return emb
 
 
-def _ffn_half(p, kind: str, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """``x + mlp(norm(x))`` of one ``attn_mlp`` block."""
+def _cross_attention(p, cfg: ModelConfig, x: torch.Tensor,
+                     enc_out: torch.Tensor) -> torch.Tensor:
+    """``x + xattn(lnx(x), enc_out)``: queries from the decoder, K/V from
+    the encoder output (recomputed on every call, decode steps included)."""
+    h = _norm(cfg, p["lnx"], x)
+    xcfg = cfg.xattn_cfg()
+    B, Sq, _ = h.shape
+    q = L.dense(p["xattn"]["q"], h).reshape(B, Sq, cfg.n_heads, xcfg.dh)
+    k = L.dense(p["xattn"]["k"], enc_out).reshape(B, -1, cfg.n_heads,
+                                                  xcfg.dh)
+    v = L.dense(p["xattn"]["v"], enc_out).reshape(B, -1, cfg.n_heads,
+                                                  xcfg.dh)
+    o = L.flash_attention(q, k, v, causal=False, block=512)
+    return x + L.dense(p["xattn"]["o"], o.reshape(B, Sq, -1))
+
+
+def _ffn_half(p, kind: str, cfg: ModelConfig, x: torch.Tensor) -> tuple:
+    """``(x + ffn(ln2(x)), aux)``: the MLP, or the MoE with its aux terms."""
     h = _norm(cfg, p["ln2"], x)
+    if kind.endswith("moe"):
+        m, aux = Moe.moe(p["moe"], h, cfg.moe)
+        return x + m, aux
     if cfg.mlp_kind == "swiglu":
-        return x + L.swiglu(p["mlp"], h)
-    return x + L.gelu_mlp(p["mlp"], h)
+        return x + L.swiglu(p["mlp"], h), {}
+    return x + L.gelu_mlp(p["mlp"], h), {}
+
+
+def _apply_block(p, kind: str, cfg: ModelConfig, x: torch.Tensor,
+                 positions, enc_out) -> tuple:
+    """One block over a full sequence.  Returns (x, aux)."""
+    h = _norm(cfg, p["ln1"], x)
+    if kind.startswith("attn"):
+        x = x + L.attention(p["attn"], h, cfg.attn_cfg(), positions)
+        if "cross" in kind:
+            x = _cross_attention(p, cfg, x, enc_out)
+    elif kind.startswith("mamba"):
+        x = x + Mb.mamba(p["mamba"], h, cfg.mamba)[0]
+    elif kind == "mlstm":
+        return x + Xl.mlstm(p["mlstm"], h, cfg.xlstm)[0], {}
+    elif kind == "slstm":
+        return x + Xl.slstm(p["slstm"], h, cfg.xlstm)[0], {}
+    return _ffn_half(p, kind, cfg, x)
 
 
 def _logits(model: LM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -228,40 +376,202 @@ def _logits(model: LM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Decode (contiguous cache)
+# Forward (full sequence)
+# ---------------------------------------------------------------------------
+
+def _encoder_forward(model: LM, cfg: ModelConfig, frames: torch.Tensor):
+    """Encoder frames [B, n_frames, d] -> encoder output, through causal
+    ``attn_mlp`` blocks without positions, as the reference's."""
+    x = frames.to(cfg.activ_dtype) + model.enc_pos.to(cfg.activ_dtype)
+    ecfg = cfg.encoder_cfg()
+    for bp in model.enc_blocks:
+        x, _ = _apply_block(bp, "attn_mlp", ecfg, x, None, None)
+    return _norm(cfg, model.enc_ln, x)
+
+
+@torch.no_grad()
+def forward(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
+            positions=None, vision_embeds=None, encoder_frames=None) -> tuple:
+    """tokens [B, S] -> (logits [B, S, vocab] fp32, aux).  ``positions``
+    [B, S] default to 0..S-1 (M-RoPE stacks need [B, 3, S]);
+    ``vision_embeds`` [B, P, d] replace the first P token embeddings;
+    ``encoder_frames`` [B, n_frames, d] feed the encoder.  ``aux`` sums the
+    MoE layers' ``load_balance``, ``router_z`` and ``dropped_frac`` (per
+    period, then over periods, as the reference's scan does; 0.0 without
+    MoE)."""
+    B, S = tokens.shape
+    x = _embed(model, cfg, tokens, vision_embeds)
+    if positions is None and cfg.mrope_sections is None:
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    enc_out = (_encoder_forward(model, cfg, encoder_frames)
+               if cfg.encoder is not None else None)
+    aux_acc = {"load_balance": 0.0, "router_z": 0.0, "dropped_frac": 0.0}
+    per_period: dict = {}
+    for p0 in range(0, cfg.n_layers, cfg.period):
+        auxes: dict = {}
+        for i in range(p0, p0 + cfg.period):
+            x, aux = _apply_block(model.blocks[i], cfg.kind(i), cfg, x,
+                                  positions, enc_out)
+            for k, v in aux.items():
+                auxes[k] = auxes.get(k, 0.0) + v
+        for k, v in auxes.items():
+            per_period.setdefault(k, []).append(v)
+    for k, vs in per_period.items():
+        aux_acc[k] = torch.stack(vs).sum()
+    return _logits(model, cfg, x), aux_acc
+
+
+@torch.no_grad()
+def loss_fn(model: LM, cfg: ModelConfig, batch: dict) -> tuple:
+    """Next-token CE.  batch: ``tokens`` [B, S] (+ ``positions``,
+    ``vision_embeds``, ``encoder_frames``, ``loss_mask`` [B, S]).  Returns
+    (total = ce + 0.01 load_balance + router_z, {"ce", aux...})."""
+    logits, aux = forward(model, cfg, batch["tokens"],
+                          positions=batch.get("positions"),
+                          vision_embeds=batch.get("vision_embeds"),
+                          encoder_frames=batch.get("encoder_frames"))
+    targets = batch["tokens"][:, 1:].long()
+    lg = logits[:, :-1]
+    lse = torch.logsumexp(lg, -1)
+    nll = lse - torch.gather(lg, -1, targets[..., None])[..., 0]
+    mask = batch.get("loss_mask")
+    mask = (mask[:, 1:].to(nll.dtype) if mask is not None
+            else torch.ones_like(nll))
+    loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    total = loss + 0.01 * aux["load_balance"] + aux["router_z"]
+    return total, {"ce": loss, **aux}
+
+
+# ---------------------------------------------------------------------------
+# Decode (contiguous caches)
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device=DEFAULT_DEVICE) -> dict:
-    """Per-layer contiguous KV caches, stacked: ``k``/``v``
-    ``[n_layers, batch, max_len, G, dh]`` (+ scales when int8) and ``len``
-    ``[n_layers, batch]``, as the reference stacks its periods."""
-    check_supported(cfg)
+               dtype=torch.bfloat16, device=DEFAULT_DEVICE) -> list:
+    """Caches mirroring the reference's: a list over the pattern's
+    positions, each ``{"self": KV cache}`` (``k``/``v`` [P, batch, max_len,
+    G, dh], scales when int8, ``len`` [P, batch]), ``{"mamba": {conv, ssm}}``,
+    ``{"mlstm": {C, n, m}}`` or ``{"slstm": {c, n, m, h}}``, every leaf
+    stacked over the P periods.  Layer ``i`` is period ``i // period`` of
+    position ``i % period``."""
     dev = resolve(device)
     if cfg.kv_cache_dtype == "int8":
         dtype = torch.int8
-    one = L.init_kv_cache(batch, max_len, cfg.attn_cfg(), dtype, dev)
-    return {k: v[None].repeat((cfg.n_layers,) + (1,) * v.dim())
-            for k, v in one.items()}
+    per = []
+    for kind in cfg.block_pattern:
+        if kind.startswith("attn"):
+            c = {"self": L.init_kv_cache(batch, max_len, cfg.attn_cfg(),
+                                         dtype, dev)}
+        elif kind.startswith("mamba"):
+            # the conv window in the type a step leaves it in (the
+            # reference's state is promoted to it by its first step)
+            c = {"mamba": Mb.init_mamba_state(
+                batch, cfg.mamba, torch.promote_types(dtype, cfg.activ_dtype),
+                dev)}
+        elif kind == "mlstm":
+            c = {"mlstm": Xl.init_mlstm_state(batch, cfg.xlstm, dev)}
+        else:
+            c = {"slstm": Xl.init_slstm_state(batch, cfg.xlstm, dev)}
+        per.append({name: {k: v[None].repeat((cfg.n_periods,)
+                                             + (1,) * v.dim())
+                           for k, v in leaves.items()}
+                    for name, leaves in c.items()})
+    return per
 
 
-def layer_cache(cache: dict, layer: int) -> dict:
-    """One layer's cache: views into the stacked leaves, written in place."""
-    return {k: v[layer] for k, v in cache.items()}
+def cache_logical(cfg: ModelConfig) -> list:
+    """Logical axes of the cache tree, as the reference names them (the
+    port shards nothing; kept for the dry-run tables)."""
+    per = []
+    for kind in cfg.block_pattern:
+        if kind.startswith("attn"):
+            kv = {"k": ("layers", "batch", "seq", "kv_heads", None),
+                  "v": ("layers", "batch", "seq", "kv_heads", None),
+                  "len": ("layers", "batch")}
+            if cfg.kv_cache_dtype == "int8":
+                kv["k_scale"] = ("layers", "batch", "seq", "kv_heads", None)
+                kv["v_scale"] = ("layers", "batch", "seq", "kv_heads", None)
+            per.append({"self": kv})
+        elif kind.startswith("mamba"):
+            per.append({"mamba": {"conv": ("layers", "batch", None, "mlp"),
+                                  "ssm": ("layers", "batch", "mlp", None)}})
+        elif kind == "mlstm":
+            per.append({"mlstm": {"C": ("layers", "batch", "heads", None, None),
+                                  "n": ("layers", "batch", "heads", None),
+                                  "m": ("layers", "batch", "heads")}})
+        else:
+            per.append({"slstm": {k: ("layers", "batch", "mlp") for k in
+                                  ("c", "n", "m", "h")}})
+    return per
 
 
-def decode_step(model: LM, cfg: ModelConfig, cache: dict,
-                tokens: torch.Tensor, active=None) -> tuple:
+def layer_cache(cache: list, cfg: ModelConfig, layer: int) -> dict:
+    """Layer ``layer``'s caches: views into the stacked leaves, written in
+    place."""
+    period, bi = divmod(layer, cfg.period)
+    return {name: {k: v[period] for k, v in leaves.items()}
+            for name, leaves in cache[bi].items()}
+
+
+def _merge_state(dst: dict, new: dict, active) -> None:
+    """Write ``new`` into the state ``dst`` in place, on the ``active`` rows
+    only (None = every row): the reference's masked merge."""
+    for k, t in dst.items():
+        n = new[k].to(t.dtype)
+        if active is not None:
+            n = torch.where(active.reshape((-1,) + (1,) * (t.dim() - 1)), n,
+                            t)
+        t.copy_(n)
+
+
+def _first_len(cache: list, cfg: ModelConfig, batch: int, device):
+    """Each row's position: the KV length of the first attention layer, or
+    zeros for stacks without attention (their positions are unused)."""
+    for bi, kind in enumerate(cfg.block_pattern):
+        if kind.startswith("attn"):
+            return cache[bi]["self"]["len"][0].clone()
+    return torch.zeros((batch,), dtype=torch.int32, device=device)
+
+
+def _decode_block(p, kind: str, cfg: ModelConfig, x, positions, enc_out,
+                  lc: dict, active) -> torch.Tensor:
+    h = _norm(cfg, p["ln1"], x)
+    if kind.startswith("attn"):
+        a, _ = L.attention_decode(p["attn"], h, lc["self"], cfg.attn_cfg(),
+                                  positions, active)
+        x = x + a
+        if "cross" in kind:
+            x = _cross_attention(p, cfg, x, enc_out)
+    elif kind.startswith("mamba"):
+        m, st = Mb.mamba(p["mamba"], h, cfg.mamba, lc["mamba"])
+        _merge_state(lc["mamba"], st, active)
+        x = x + m
+    else:  # mlstm / slstm
+        fn = Xl.mlstm if kind == "mlstm" else Xl.slstm
+        m, st = fn(p[kind], h, cfg.xlstm, lc[kind])
+        _merge_state(lc[kind], st, active)
+        return x + m
+    return _ffn_half(p, kind, cfg, x)[0]
+
+
+@torch.no_grad()
+def decode_step(model: LM, cfg: ModelConfig, cache: list,
+                tokens: torch.Tensor, active=None, positions=None,
+                enc_out=None) -> tuple:
     """One decode step. tokens [B, 1] -> (logits [B, 1, vocab] fp32, cache).
 
-    Each row's position is its current cache length.  The cache is written
-    in place for the ``active`` rows ([B] bool; None = all); rows not active
-    keep their cache and length (the reference's masked merge)."""
+    Each row's position defaults to its current KV length (M-RoPE stacks
+    need explicit ``positions`` [B, 3, 1]; encoder-decoder stacks need
+    ``enc_out``).  Every row is computed as the reference computes it; the
+    caches are then written in place on the ``active`` rows ([B] bool; None
+    = all) only, so the other rows keep their state and length (the
+    reference's masked merge)."""
+    B = tokens.shape[0]
     x = _embed(model, cfg, tokens)
-    positions = cache["len"][0].clone()[:, None]
+    if positions is None and cfg.mrope_sections is None:
+        positions = _first_len(cache, cfg, B, x.device)[:, None].expand(
+            tokens.shape)
     for i, blk in enumerate(model.blocks):
-        h = _norm(cfg, blk["ln1"], x)
-        a, _ = L.attention_decode(blk["attn"], h, layer_cache(cache, i),
-                                  cfg.attn_cfg(), positions, active)
-        x = _ffn_half(blk, "attn_mlp", cfg, x + a)
+        x = _decode_block(blk, cfg.kind(i), cfg, x, positions, enc_out,
+                          layer_cache(cache, cfg, i), active)
     return _logits(model, cfg, x), cache

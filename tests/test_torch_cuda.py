@@ -486,9 +486,42 @@ def test_flash_decode_kernel_refuses_bad_inputs(cuda):
         fdk.flash_decode(q[..., :8].contiguous(), k[..., :8].contiguous(),
                          v[..., :8].contiguous(), table, lens,
                          k_scale=pool["k_scale"], v_scale=pool["v_scale"])
-    q9 = torch.zeros((2, 2, 9, 16), device=cuda)
+    q17 = torch.zeros((2, 2, 17, 16), device=cuda)
     with pytest.raises(ValueError, match="query heads"):
-        fdk.flash_decode(q9, k, v, table, lens, **s)
+        fdk.flash_decode(q17, k, v, table, lens, **s)
+
+
+# The head shapes of the reference's other configs: Granite-MoE 3B (8 KV
+# heads of 64, rep 3), starcoder2-3b (2 of 128, rep 12), the largest rep the
+# source instantiates, and reps padded with zero query heads to 12 and 16.
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("g,rep,dh,bs,width", [
+    (8, 3, 64, 16, 35),  # granite-moe-3b-a800m
+    (2, 12, 128, 16, 35),  # starcoder2-3b
+    (2, 16, 128, 16, 9),
+    (2, 10, 128, 16, 9),  # padded to 12
+    (3, 9, 64, 8, 5),  # padded to 12
+    (1, 13, 32, 16, 4),  # padded to 16
+    (2, 16, 16, 8, 3),
+])
+def test_flash_decode_kernel_at_every_configs_rep(cuda, kv_dtype, g, rep, dh,
+                                                  bs, width):
+    from repro_torch.kernels.flash_decode import kernel as fdk
+
+    b = 6
+    q, pool, table = _fd_inputs(b, g, rep, dh, bs, width, kv_dtype, rep, cuda)
+    cap = bs * width
+    lens = torch.tensor([1, cap, cap // 2, 17, 0, cap - 1],
+                        dtype=torch.int32, device=cuda)
+    got = _fd_check(q * dh ** -0.5, pool, table, lens)
+    assert got.shape == (b, g, rep, dh) and got.is_contiguous()
+    assert torch.equal(got[4], torch.zeros_like(got[4]))
+    for splits in (2, 8):  # the split merge at the wide reps too
+        torch.testing.assert_close(
+            _fd_kernel(q * dh ** -0.5, pool, table, lens, splits), got,
+            atol=2e-5, rtol=2e-5)
+    assert fdk.launch_rep(rep) in fdk.REPS
 
 
 # The split-KV design at the serving widths of Llama 3.2 3B: a cluster of
@@ -614,6 +647,86 @@ def test_paged_smoke_decode_launches_the_kernel_once_per_layer(cuda):
         assert bool(torch.isfinite(eng.last_logits).all())
     assert fd.launches - before == cfg.n_layers * 6
     assert eng.decode_dispatches == 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "granite-moe-3b-a800m",
+                                  "qwen2-vl-72b", "xlstm-125m",
+                                  "whisper-small", "jamba-1.5-large-398b"])
+def test_each_family_on_the_card_matches_the_cpu(cuda, arch):
+    """One architecture of each family (dense, moe, vlm, ssm, audio,
+    hybrid) at smoke shapes and fp32, the same weights on the card and on
+    the CPU: forward logits and 4 decode steps within 1e-5 of each row's
+    largest |logit| (fp32 sums in another order; TF32 off)."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.nn import transformer as T
+
+    cfg = dataclasses.replace(registry.get(arch).smoke(),
+                              activ_dtype=torch.float32)
+    cpu = torch.device("cpu")
+    models = {d: T.init(cfg, torch.Generator().manual_seed(5), cpu).to(d)
+              for d in (cpu, cuda)}
+    rng = np.random.default_rng(6)
+    B, S = 2, 12
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)))}
+    if cfg.mrope_sections is not None:
+        batch["positions"] = torch.arange(S)[None, None].expand(B, 3, S) * 1
+        batch["vision_embeds"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.vision_patches, cfg.d_model)).astype(np.float32))
+    if cfg.encoder is not None:
+        batch["encoder_frames"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.encoder.n_frames, cfg.encoder.d_model)).astype(np.float32))
+    out = {}
+    for d, model in models.items():
+        b = {k: v.to(d) for k, v in batch.items()}
+        logits, _ = T.forward(model, cfg, b["tokens"],
+                              positions=b.get("positions"),
+                              vision_embeds=b.get("vision_embeds"),
+                              encoder_frames=b.get("encoder_frames"))
+        cache = T.init_cache(cfg, B, 8, device=d)
+        enc = (T._encoder_forward(model, cfg, b["encoder_frames"])
+               if cfg.encoder is not None else None)
+        steps = [logits.reshape(-1, cfg.vocab).cpu()]
+        for t in range(4):
+            pos = (torch.full((B, 3, 1), t, device=d)
+                   if cfg.mrope_sections is not None else None)
+            lg, cache = T.decode_step(model, cfg, cache,
+                                      b["tokens"][:, t:t + 1], positions=pos,
+                                      enc_out=enc)
+            steps.append(lg[:, 0].cpu())
+        out[d.type] = steps
+    for want, got in zip(out["cpu"], out["cuda"]):
+        top = want.abs().amax(-1, keepdim=True)
+        assert bool(((got - want).abs() <= 1e-5 * top).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "starcoder2-3b"])
+def test_paged_moe_and_rep12_decode_launch_the_kernel_once_per_layer(cuda,
+                                                                     arch):
+    from repro_torch.configs import registry
+    from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.launch.serve import ServeEngine
+    from repro_torch.lm.paging import PagedConfig
+    from repro_torch.nn import transformer as T
+
+    cfg = registry.get(arch).smoke()
+    if arch == "starcoder2-3b":  # the full config's 12 query heads a KV head
+        import dataclasses
+        cfg = dataclasses.replace(cfg, n_heads=24, n_kv_heads=2, d_model=96,
+                                  head_dim=16)
+    model = T.init(cfg, 0, cuda)
+    eng = ServeEngine(cfg, model, 3, 32, device=cuda,
+                      paged=PagedConfig(block_size=8, prefill_chunk=4))
+    for s, n in enumerate((1, 5, 9)):
+        eng.add_request(s, np.arange(n) * 7 % cfg.vocab)
+    before = fd.launches
+    for _ in range(4):
+        assert eng.step() is not None
+        assert bool(torch.isfinite(eng.last_logits).all())
+    assert fd.launches - before == cfg.n_layers * 4
 
 
 # circconv: the reference test's shapes (tests/test_kernels.py), the serving

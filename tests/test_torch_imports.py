@@ -1,5 +1,6 @@
 """The port's boundary: ``repro_torch``, ``chip_smoke.py``, the port's
-examples (``examples/torch_*.py``) and ``tools/train_phase.py`` use no JAX
+examples (``examples/torch_*.py``), ``tools/train_phase.py`` and
+``tools/lm_stack_phase.py`` use no JAX
 and nothing of the reference package ``repro``.
 
 Importing is checked in a fresh subprocess, because this test process has
@@ -16,7 +17,8 @@ PORT = ROOT / "src" / "repro_torch"
 CHIP_SMOKE = ROOT / "chip_smoke.py"
 SCRIPTS = [CHIP_SMOKE, ROOT / "examples" / "torch_raven_abduction.py",
            ROOT / "examples" / "torch_mimonet_superposition.py",
-           ROOT / "tools" / "train_phase.py"]
+           ROOT / "tools" / "train_phase.py",
+           ROOT / "tools" / "lm_stack_phase.py"]
 
 _IMPORT_ALL = """
 import importlib, importlib.util, pkgutil, sys
@@ -42,14 +44,16 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 81  # every package and module of the port, the LM
+    assert int(count) >= 93  # every package and module of the port, the LM
     # serving slice's (nn, configs, lm, launch, runtime, flash_decode), the
     # sharded engine's (launch.mesh, engine.sharding), MIMONet's
     # (kernels.circconv, models.mimonet, core.superposition), NVSA's
     # (core.symbolic, models.cnn, models.nvsa, engine.build) and the
     # supervised runtime's (runtime.{protocol,telemetry,faults,fleet,
     # runtime}, obs.{slo,report}) and training's (train, train.{optimizer,
-    # checkpoint,loop}, models.prae) included
+    # checkpoint,loop}, models.prae) and the rest of the LM stack's
+    # (nn.{moe,mamba,xlstm} and the nine other architectures' configs)
+    # included
     assert bad == "[]"
 
 
@@ -65,7 +69,7 @@ def _imported(path: Path) -> set:
 
 def test_no_source_of_the_port_imports_jax_or_the_reference():
     port = sorted(PORT.rglob("*.py"))
-    assert len(port) >= 82
+    assert len(port) >= 94
     files = port + SCRIPTS
     names = {p.relative_to(PORT).as_posix() for p in port}
     assert {"nn/layers.py", "nn/transformer.py", "lm/model.py",
@@ -82,7 +86,13 @@ def test_no_source_of_the_port_imports_jax_or_the_reference():
             "runtime/telemetry.py", "runtime/faults.py", "runtime/fleet.py",
             "runtime/runtime.py", "obs/slo.py", "obs/report.py",
             "train/__init__.py", "train/optimizer.py", "train/checkpoint.py",
-            "train/loop.py", "models/prae.py"} <= names
+            "train/loop.py", "models/prae.py", "nn/moe.py", "nn/mamba.py",
+            "nn/xlstm.py", "configs/common.py", "configs/dbrx_132b.py",
+            "configs/granite_moe_3b_a800m.py",
+            "configs/jamba_1_5_large_398b.py", "configs/minicpm_2b.py",
+            "configs/qwen2_5_32b.py", "configs/qwen2_vl_72b.py",
+            "configs/starcoder2_3b.py", "configs/whisper_small.py",
+            "configs/xlstm_125m.py"} <= names
     for path in files:
         for name in _imported(path):
             top = name.split(".")[0]

@@ -328,16 +328,40 @@ def test_serve_main_on_the_cpu(caplog):
     text = caplog.text
     assert "llama3.2-smoke" in text and "(2 dispatches)" in text
     assert "decode 3 steps x 2 slots" in text
-    with pytest.raises(KeyError, match="llama3.2-3b"):
-        registry.get("qwen2.5-32b")
+    with pytest.raises(KeyError, match="qwen2.5-32b"):  # names the known
+        registry.get("no-such-arch")
 
 
-def test_unported_configs_raise_naming_the_roadmap_item():
+@pytest.mark.parametrize("arch_id", ["granite-moe-3b-a800m",
+                                     "jamba-1.5-large-398b",
+                                     "qwen2-vl-72b"])
+def test_moe_mamba_and_mrope_configs_build_and_match_the_reference(arch_id):
+    """The three kinds the port once refused (an ``attn_moe`` stack, a
+    Mamba hybrid, M-RoPE with a vision prefix) build from the registry and
+    give the reference's logits at fp32 (rtol 1e-5 of each row's largest
+    |logit|: fp32 sums in another order)."""
     from repro_torch.nn import transformer as T
 
-    cfg = registry.get("llama3.2-3b").smoke()
-    for bad in (dict(block_pattern=("attn_moe",)),
-                dict(block_pattern=("mamba_mlp",)),
-                dict(moe=object()), dict(mrope_sections=(4, 2, 2))):
-        with pytest.raises(NotImplementedError, match="Queue A item 2"):
-            T.init(dataclasses.replace(cfg, **bad), 0, "cpu")
+    cfg_r = dataclasses.replace(ARCHS[arch_id].smoke(),
+                                activ_dtype=jax.numpy.float32)
+    cfg_t = dataclasses.replace(registry.get(arch_id).smoke(),
+                                activ_dtype=torch.float32)
+    params_r, _ = RT.init(jax.random.PRNGKey(0), cfg_r)
+    model = convert.lm_params_from_reference(
+        jax.tree.map(np.asarray, params_r), cfg_t, device="cpu")
+    assert T.param_count(model) == RT.param_count(params_r)
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(0, cfg_r.vocab, (2, 12)).astype(np.int32)
+    kw = {}
+    if cfg_r.mrope_sections is not None:
+        kw["positions"] = np.stack([np.arange(12) * m for m in (1, 2, 3)]
+                                   )[None].repeat(2, 0).astype(np.int32)
+        kw["vision_embeds"] = rng.standard_normal(
+            (2, cfg_r.vision_patches, cfg_r.d_model)).astype(np.float32)
+    want, _ = RT.forward(params_r, cfg_r, jax.numpy.asarray(tokens),
+                         **{k: jax.numpy.asarray(v) for k, v in kw.items()})
+    got, _ = T.forward(model, cfg_t, torch.from_numpy(tokens),
+                       **{k: torch.from_numpy(v) for k, v in kw.items()})
+    want = np.asarray(want)
+    row = np.abs(want).max(-1, keepdims=True)
+    assert (np.abs(got.numpy() - want) <= 1e-5 * row).all()

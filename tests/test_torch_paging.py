@@ -327,7 +327,10 @@ def test_paging_rejects_unsupported_stacks():
                               block_pattern=("mamba_mlp",))
     with pytest.raises(ValueError, match="attention-only"):
         lm_model.check_paging_supported(cfg)
-    moe = dataclasses.replace(cfg, block_pattern=("attn_moe",))
-    lm_model.check_paging_supported(moe)  # pageable in the reference ...
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        lm_model.init_pool(moe, 4, 8, device="cpu")  # ... not ported yet
+    with pytest.raises(ValueError, match="M-RoPE"):
+        lm_model.check_paging_supported(registry.get("qwen2-vl-72b").smoke())
+    moe = registry.get("granite-moe-3b-a800m").smoke()
+    lm_model.check_paging_supported(moe)  # pageable, as in the reference
+    pool = lm_model.init_pool(moe, 4, 8, device="cpu")
+    G, dh = moe.n_kv_heads, moe.head_dim
+    assert pool["k"].shape == (moe.n_layers, 5, 8, G, dh)  # + trash block

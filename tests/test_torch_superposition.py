@@ -69,7 +69,53 @@ def test_make_stream_keys_are_unitary():
     assert torch.equal(keys, again)
 
 
-def test_mimo_lm_logits_waits_for_the_full_sequence_forward():
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
-        tsup.mimo_lm_logits(None, None, torch.zeros((1, 2, 4), dtype=torch.long),
-                            torch.zeros((2, 64)))
+def _mimo_model():
+    from repro.configs.registry import ARCHS
+    from repro.nn import transformer as RT
+    from repro_torch import convert
+    from repro_torch.configs import registry
+
+    cfg_r = ARCHS["llama3.2-3b"].smoke()
+    cfg_t = registry.get("llama3.2-3b").smoke()
+    params, _ = RT.init(jax.random.PRNGKey(0), cfg_r)
+    model = convert.lm_params_from_reference(jax.tree.map(np.asarray, params),
+                                             cfg_t, device="cpu")
+    return cfg_r, params, cfg_t, model
+
+
+def test_mimo_lm_logits_match_the_reference_run_op_by_op():
+    """Two token streams through ONE llama backbone pass (bf16), against the
+    reference run op by op: within one bf16 ulp of each row's largest
+    |logit| (its FFT binds round in other places)."""
+    cfg_r, params, cfg_t, model = _mimo_model()
+    keys = np.array(rsup.make_stream_keys(jax.random.PRNGKey(1), 2,
+                                          cfg_r.d_model))
+    toks = np.random.default_rng(2).integers(0, cfg_r.vocab, (2, 2, 16)
+                                             ).astype(np.int32)
+    with jax.disable_jit():
+        want = np.asarray(rsup.mimo_lm_logits(
+            params, cfg_r, jnp.asarray(toks), jnp.asarray(keys))
+        ).astype(np.float32)
+    got = tsup.mimo_lm_logits(model, cfg_t, torch.from_numpy(toks),
+                              torch.from_numpy(keys))
+    assert got.shape == (2, 2, 16, cfg_r.vocab)
+    assert got.dtype == cfg_t.activ_dtype
+    top = np.abs(want).max(-1, keepdims=True)
+    ulp = 2.0 ** (np.floor(np.log2(top)) - 7)
+    assert (np.abs(got.float().numpy() - want) <= ulp).all()
+
+
+def test_mimo_lm_streams_are_separable():
+    """The reference's oracle on the port: per-stream logits track their own
+    stream when the streams swap key slots, not the other stream."""
+    cfg_r, _, cfg_t, model = _mimo_model()
+    keys = tsup.make_stream_keys(1, 2, cfg_t.d_model, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg_t.vocab, (2, 2, 16)))
+    logits = tsup.mimo_lm_logits(model, cfg_t, toks, keys).float()
+    assert bool(torch.isfinite(logits).all())
+    swapped = tsup.mimo_lm_logits(model, cfg_t, toks.flip(1), keys).float()
+    a = logits[:, 0].ravel().numpy()
+    corr_same = np.corrcoef(a, swapped[:, 1].ravel().numpy())[0, 1]
+    corr_other = np.corrcoef(a, swapped[:, 0].ravel().numpy())[0, 1]
+    assert corr_same > corr_other, (corr_same, corr_other)
