@@ -172,7 +172,22 @@ port from the checkout's sources (into ``build/kernels/``), then:
      excused and named);
  30. times flash_decode at Granite's shape (rep 3, dh 64) and starcoder2's
      (rep 12, dh 128), cold L2, beside its bound, plain version and SDPA;
- 31. prints one JSON line describing every kernel, the card line, and as
+ 31. trains by ``launch/train.py``'s recipe (batch 8 x 128 tokens of
+     ``TokenDataset``, AdamW at fp32 state, cosine 3e-4, clip 1.0, remat
+     "full"): (a) Llama 3.2 3B at full width in the training layout
+     (3,606,752,256 fp32 masters), 30 steps, ce lowered, every loss and
+     gradient norm finite, steps/s, tokens/s, host data time and peak
+     memory; then the optimizer state freed, the serving copy (bf16 matmul
+     weights) through ``LMEngine(slots=16)``: 16 requests of 16-256
+     tokens, 16 new, flash_decode launches = 28 x decode steps, and the
+     greedy contract on 8 prompts; (b) Granite-MoE 3B at full width, 10
+     steps, its dropped share; (c) all ten architectures at smoke shapes,
+     the same fp32 masters and batch on the card and on the CPU: one
+     step's loss and every leaf's gradient (fp32 and bf16) and the
+     parameters after 3 steps of each spec's recipe; (d) int8 gradient
+     compression with error feedback on 8 logical data shards, the
+     reference test's least squares, exact and int8, 400 steps each;
+ 32. prints one JSON line describing every kernel, the card line, and as
      the last line ``{"ok": true, "device": {...}}``.
 
 A failed phase raises, and the script exits nonzero.  Without a CUDA device,
@@ -948,12 +963,13 @@ def phase_flash_decode(torch, dev, fd):
     return err
 
 
-def lm_prompts(n, vocab, seed=31):
-    """`n` prompts of lengths uniform in LM_PROMPTS, random token ids."""
+def lm_prompts(n, vocab, seed=31, lens=LM_PROMPTS):
+    """`n` prompts of lengths uniform in `lens` (inclusive), random token
+    ids."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    lens = rng.integers(LM_PROMPTS[0], LM_PROMPTS[1] + 1, n)
+    lens = rng.integers(lens[0], lens[1] + 1, n)
     return [rng.integers(0, vocab, int(k)) for k in lens]
 
 
@@ -975,30 +991,32 @@ def _nan_tap(torch, serve):
     return bad
 
 
-def serve_lm(torch, dev, cfg, model, prompts, fd, tag):
-    """Drain `prompts` through LMEngine on the card; check every request and
-    the launch count; return the run's numbers."""
+def serve_lm(torch, dev, cfg, model, prompts, fd, tag, *, slots=LM_SLOTS,
+             new=LM_NEW, max_len=LM_MAX_LEN):
+    """Drain `prompts` through LMEngine(slots) on the card, `new` tokens
+    each; check every request and the launch count; return the run's
+    numbers."""
     from repro_torch import obs, runtime
     from repro_torch.lm.paging import PagedConfig
 
     rec = obs.Recorder()
     eng = runtime.LMEngine(
-        cfg, model, slots=LM_SLOTS, max_len=LM_MAX_LEN, obs=rec, device=dev,
+        cfg, model, slots=slots, max_len=max_len, obs=rec, device=dev,
         paged=PagedConfig(block_size=LM_BLOCK, prefill_chunk=LM_CHUNK))
     bad = _nan_tap(torch, eng.serve)
     torch.cuda.synchronize()
     fd.launches = 0  # this path's run starts here
     t0 = time.perf_counter()
-    ids = [eng.submit(p, max_new_tokens=LM_NEW) for p in prompts]
+    ids = [eng.submit(p, max_new_tokens=new) for p in prompts]
     done = {r.id: r for r in eng.drain()}
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = fd.launches  # ... and ends here
-    short = [i for i in ids if len(done[i].tokens) != LM_NEW
+    short = [i for i in ids if len(done[i].tokens) != new
              or done[i].truncated]
     if short:
         raise AssertionError(f"{tag}: {len(short)} requests without "
-                             f"{LM_NEW} tokens or truncated")
+                             f"{new} tokens or truncated")
     if int(bad):
         raise AssertionError(f"{tag}: {int(bad)} non-finite logits")
     dispatches = eng.serve.decode_dispatches
@@ -1025,8 +1043,9 @@ def device_profile(torch, fn, reps: int = 3) -> str:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    kern = [e for e in prof.key_averages()  # kernels, not annotated ranges
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
     if not kern:
         return "the profiler recorded no device events"
     busy = {e.key: getattr(e, "self_device_time_total", 0.0) / (reps * 1e3)
@@ -3813,6 +3832,427 @@ def phase_arch_card_cpu(torch, dev, card) -> dict:
     return out
 
 
+# Phase 31: LM training by the reference's recipe (launch/train.py: batch 8
+# of 128 tokens from TokenDataset, AdamW at fp32 state, cosine 3e-4 with
+# total // 20 warmup steps, clip 1.0, remat "full") at full width, the
+# trained Llama served through flash_decode; every architecture's gradients
+# and steps at smoke size against the CPU; int8 gradient compression.
+LLAMA = "llama3.2-3b"
+LLAMA_PARAMS = 3_606_752_256
+LLAMA_TRAIN_STEPS, GRANITE_TRAIN_STEPS = 30, 10
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 8, 128
+TRAINED_REQUESTS, TRAINED_SLOTS, TRAINED_NEW = 16, 16, 16
+TRAINED_PROMPTS = (16, 256)
+# The longest prompt, its 16 tokens and an adSCH burst's overshoot.
+TRAINED_MAX_LEN = 320
+# Card against the CPU at smoke shapes (the CPU parity tests' tolerances,
+# PERF.md section 2): fp32 loss 1e-5 relative and every leaf's gradient
+# within 2e-5 of its largest |g| (at least 1e-3 of the model's largest);
+# bf16 loss 1e-2 relative, leaves 0.06, global norm 1 %; parameters after
+# 3 steps within 1e-3 (AdamW) or 0.1 (Adafactor) of how far the model
+# moved, in L2 over every leaf, and each leaf whose largest |g| is at
+# least 1e-3 of the model's within 1e-2 (AdamW) or 0.1 of its own move.
+# Both optimizers divide each entry's step by its own gradient's scale, so
+# a leaf whose gradient nearly cancels carries its gradient's larger
+# relative rounding into its update (first readings: qwen2-vl's k bias,
+# 0.0043 of its move; xLSTM's input-gate bias, whose gradient is rounding
+# noise around 0, 2.05, hence the floor);
+# Adafactor's first update is g / |g| elementwise, so an entry whose
+# gradient cancels to the rounding level moves +-lr either way: a share f
+# of such entries moves a leaf by 2 sqrt(f) of its move, and 0.1 allows
+# f = 0.25 % (first reading: jamba's embedding, 0.0578).
+TRAIN_BATCH_SMOKE, TRAIN_SEQ_SMOKE = 2, 16
+GRAD_FP32_RTOL, GRAD_BF16_RTOL, GRAD_FLOOR, GNORM_BF16_RTOL = (
+    2e-5, 0.06, 1e-3, 0.01)
+STEP_PARAM_RTOL = {"adamw": 1e-3, "adafactor": 0.1}  # the whole model
+STEP_LEAF_RTOL = {"adamw": 1e-2, "adafactor": 0.1}
+CARD_CPU_STEPS = 3
+LSQ_STEPS, LSQ_SHARDS = 400, 8  # tests/test_distributed.py's problem
+
+
+class TimedBatches:
+    """An iterable of batches that sums the host time spent producing them
+    (``data_s``): the token stream's numpy draw and the copy to the card."""
+
+    def __init__(self, inner):
+        self.inner, self.data_s = inner, 0.0
+
+    def __iter__(self):
+        it = iter(self.inner)
+        while True:
+            t0 = time.perf_counter()
+            b = next(it)
+            self.data_s += time.perf_counter() - t0
+            yield b
+
+
+def train_full(torch, dev, arch, steps, card, phase, profile=True) -> dict:
+    """`steps` steps of launch/train.py's step at full width through the
+    loop (no checkpoint files), fp32 masters and AdamW state drawn on the
+    card; with `profile`, the last step runs under the profiler (and is
+    left out of the steady step time).  Checks every loss and gradient
+    norm finite; returns the figures and the trained model (its optimizer
+    state freed)."""
+    import gc
+
+    from repro_torch.configs import registry
+    from repro_torch.data.tokens import TokenConfig, TokenDataset
+    from repro_torch.launch import train as TR
+    from repro_torch.nn import transformer as T
+    from repro_torch.train.loop import LoopConfig, run
+
+    spec = registry.get(arch)
+    cfg = spec.full()
+    if not cfg.remat or cfg.remat_policy != "full":
+        raise AssertionError(f"phase {phase}: {arch}'s full config must "
+                             "remat its periods in full")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = T.init(cfg, 0, dev, trainable=True)
+    opt, step = TR.build_train_step(model, spec, steps)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    steady_gb = torch.cuda.memory_allocated() / 1e9
+    n_params = T.param_count(model)
+    data = TimedBatches(TR.TokenBatches(cfg, TokenDataset(TokenConfig(
+        cfg.vocab, LM_TRAIN_SEQ, LM_TRAIN_BATCH)), dev))
+    step_s, trace = [], {}
+
+    def traced(state, batch):
+        """The last step runs under the profiler (its time is left out of
+        the steady mean)."""
+        if not profile or len(step_s) < steps - 1:
+            return step(state, batch)
+        res = []
+        trace["profile"] = device_profile(
+            torch, lambda: res.append(step(state, batch)), reps=1)
+        return res[0]
+
+    state = {"params": list(model.parameters()), "opt": opt.state_tree()}
+    t0 = time.perf_counter()
+    _, history = run(traced, state, data, LoopConfig(total_steps=steps,
+                                                     log_every=1),
+                     metrics_hook=lambda i, m, dt, slow: step_s.append(dt))
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    total_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    metrics = [m for _, m in history]
+    bad = [i for i, m in enumerate(metrics) if not all(
+        math.isfinite(m[k]) for k in ("loss", "ce", "grad_norm"))]
+    if bad or len(metrics) != steps or len(step_s) != steps:
+        raise AssertionError(f"phase {phase}: {arch}: non-finite loss or "
+                             f"gradient norm at steps {bad}")
+    del opt, step, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    steady = step_s[1:-1] if profile else step_s[1:]
+    steady_ms = 1e3 * sum(steady) / max(len(steady), 1)
+    out = {"arch": arch, "params": n_params, "steps": steps,
+           "init_s": t_init, "wall_s": wall, "steps_per_s": steps / wall,
+           "first_step_ms": step_s[0] * 1e3, "step_ms": steady_ms,
+           "tokens_per_s": tokens / (steady_ms / 1e3),
+           "data_s": data.data_s, "step_s": sum(step_s),
+           "steady_gb": steady_gb, "peak_gb": peak_gb, "card_gb": total_gb,
+           "ce_first": metrics[0]["ce"], "ce_last": metrics[-1]["ce"],
+           "max_grad_norm": max(m["grad_norm"] for m in metrics),
+           "profile": trace.get("profile"),
+           "dropped": (sum(m["dropped_frac"] for m in metrics) / steps
+                       / cfg.n_layers if cfg.moe is not None else None)}
+    print(f"phase {phase}: {cfg.name}: {n_params:,} parameters, fp32 masters "
+          f"and AdamW moments drawn on {card} in {t_init:.1f} s "
+          f"({steady_gb:.2f} GB); {steps} steps of batch {LM_TRAIN_BATCH} x "
+          f"{LM_TRAIN_SEQ} (remat full, clip 1.0, cosine 3e-4, warmup "
+          f"{max(steps // 20, 1)}): wall {wall:.2f} s, "
+          f"{out['steps_per_s']:.3f} steps/s; first step "
+          f"{out['first_step_ms']:.1f} ms, then {steady_ms:.1f} ms a step "
+          f"(steps 1-{steps - 1 - profile}), "
+          f"{out['tokens_per_s']:.0f} tokens/s; host data "
+          f"{data.data_s:.2f} s against {out['step_s']:.2f} s of steps; "
+          f"peak {peak_gb:.2f} GB of {total_gb:.1f} GB; ce "
+          f"{out['ce_first']:.4f} at step 0, {out['ce_last']:.4f} at step "
+          f"{steps - 1}; largest grad_norm {out['max_grad_norm']:.4f}"
+          + ("" if out["dropped"] is None else
+             f"; dropped share of (token, expert) assignments "
+             f"{out['dropped']:.4f} a MoE layer, mean over the steps"),
+          flush=True)
+    if profile:
+        print(f"phase {phase}: profiler, step {steps - 1}: "
+              f"{out['profile']}", flush=True)
+    return out, model
+
+
+def _smoke_grads(torch, cfg, model, batch, tap):
+    """(loss, aux, every leaf's gradient on the CPU, the MoE routes of the
+    forward pass)."""
+    from repro_torch.nn import transformer as T
+
+    tap.routes = []
+    loss, aux = T.loss_fn(model, cfg, batch)
+    loss.backward()
+    routes, tap.routes = tap.routes, None
+    grads = [p.grad.detach().cpu() for p in model.parameters()]
+    model.zero_grad(set_to_none=True)
+    return (float(loss.detach()), aux, grads,
+            [(e.cpu(), k.cpu()) for e, k in routes])
+
+
+def _leaf_worst(got: list, want: list, names: list) -> tuple:
+    """The largest max |got - want| of a leaf over its scale (its largest
+    |g|, at least GRAD_FLOOR of the model's largest), and that leaf."""
+    top = max(float(w.abs().max()) for w in want)
+    worst = (0.0, None)
+    for g, w, name in zip(got, want, names):
+        scale = max(float(w.abs().max()), GRAD_FLOOR * top)
+        d = float((g - w).abs().max()) / scale
+        if d >= worst[0]:
+            worst = (d, name)
+    return worst
+
+
+def phase_train_card_cpu(torch, dev, card) -> dict:
+    """All ten architectures at smoke shapes in the training layout, the
+    same fp32 masters and batch on the card and on the CPU: the loss and
+    every leaf's gradient of one step at fp32 and bf16, then the parameters
+    after CARD_CPU_STEPS steps of the spec's recipe at fp32.  A bf16 MoE
+    run whose routing differs between the two is excused and named."""
+    import dataclasses
+
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.data.tokens import TokenConfig, TokenDataset
+    from repro_torch.launch import train as TR
+    from repro_torch.nn import transformer as T
+
+    cpu = torch.device("cpu")
+    tap = MoETap(torch)
+    out = {"fp32": 0.0, "bf16": 0.0, "gnorm_bf16": 0.0, "params": 0.0,
+           "leaf": 0.0, "leaf_name": None, "excused": []}
+    try:
+        for arch in sorted(ARCHS):
+            spec = ARCHS[arch]
+            for dtype in (torch.float32, torch.bfloat16):
+                cfg = dataclasses.replace(spec.smoke(), activ_dtype=dtype)
+                models = {d: T.init(cfg, torch.Generator().manual_seed(5),
+                                    cpu, trainable=True).to(d)
+                          for d in (cpu, dev)}
+                names = [n for n, _ in models[cpu].named_parameters()]
+                batch = next(iter(TR.TokenBatches(cfg, TokenDataset(
+                    TokenConfig(cfg.vocab, TRAIN_SEQ_SMOKE,
+                                TRAIN_BATCH_SMOKE, seed=9)), cpu)))
+                runs = {d: _smoke_grads(torch, cfg, m, {
+                    k: v.to(d) for k, v in batch.items()}, tap)
+                    for d, m in models.items()}
+                (lc, _, gc_, rc), (lg, _, gg, rg) = runs[cpu], runs[dev]
+                worst = _leaf_worst(gg, gc_, names)
+                if dtype == torch.float32:
+                    top = max(float(g.abs().max()) for g in gc_)
+                    held = [float(g.abs().max()) >= GRAD_FLOOR * top
+                            for g in gc_]
+                    if abs(lg - lc) > 1e-5 * abs(lc) or \
+                            worst[0] > GRAD_FP32_RTOL:
+                        raise AssertionError(
+                            f"phase 31c: {arch} fp32: loss {lg} on the "
+                            f"card, {lc} on the CPU; leaf {worst[1]} "
+                            f"differs by {worst[0]:.3g} > {GRAD_FP32_RTOL}")
+                    out["fp32"] = max(out["fp32"], worst[0])
+                    continue
+                if rc and bool(MoETap.changed_rows(rc, rg).any()):
+                    out["excused"].append(f"{arch} bf16: {worst[0]:.3g}")
+                    continue
+                gn = [math.sqrt(sum(float(x.double().square().sum())
+                                    for x in g)) for g in (gg, gc_)]
+                dn = abs(gn[0] - gn[1]) / gn[1]
+                if (abs(lg - lc) > 1e-2 * abs(lc) or worst[0] > GRAD_BF16_RTOL
+                        or dn > GNORM_BF16_RTOL or not gn[0] > 0
+                        or not all(bool(torch.isfinite(x).all()) for x in gg)):
+                    raise AssertionError(
+                        f"phase 31c: {arch} bf16: loss {lg} / {lc}, global "
+                        f"norm {gn[0]} / {gn[1]}, leaf {worst[1]} differs "
+                        f"by {worst[0]:.3g} (card / CPU)")
+                out["bf16"] = max(out["bf16"], worst[0])
+                out["gnorm_bf16"] = max(out["gnorm_bf16"], dn)
+            cfg = dataclasses.replace(spec.smoke(), activ_dtype=torch.float32)
+            after = {}
+            for d in (cpu, dev):
+                model = T.init(cfg, torch.Generator().manual_seed(5), cpu,
+                               trainable=True).to(d)
+                start = [p.detach().cpu().clone() for p in model.parameters()]
+                _, step = TR.build_train_step(model, spec, CARD_CPU_STEPS)
+                it = iter(TR.TokenBatches(cfg, TokenDataset(TokenConfig(
+                    cfg.vocab, TRAIN_SEQ_SMOKE, TRAIN_BATCH_SMOKE, seed=9)),
+                    d))
+                for _ in range(CARD_CPU_STEPS):
+                    step(None, next(it))
+                after[d] = [p.detach().cpu() for p in model.parameters()]
+            diff = moved = 0.0
+            for name, a, b, s, h in zip(names, after[dev], after[cpu], start,
+                                        held):
+                leaf, move = float((a - b).norm()), float((b - s).norm())
+                diff, moved = diff + leaf ** 2, moved + move ** 2
+                if not h:
+                    continue
+                d = leaf / max(move, 1e-30)
+                if d > STEP_LEAF_RTOL[spec.optimizer]:
+                    raise AssertionError(
+                        f"phase 31c: {arch}: {name} after {CARD_CPU_STEPS} "
+                        f"steps differs by {d:.3g} of its move (card / CPU)")
+                if d > out["leaf"]:
+                    out["leaf"], out["leaf_name"] = d, f"{arch} {name}"
+            d = math.sqrt(diff / moved)
+            if d > STEP_PARAM_RTOL[spec.optimizer]:
+                raise AssertionError(
+                    f"phase 31c: {arch}: the parameters after "
+                    f"{CARD_CPU_STEPS} steps differ by {d:.3g} of the "
+                    "model's move (card / CPU)")
+            out["params"] = max(out["params"], d)
+    finally:
+        tap.close()
+    torch.cuda.empty_cache()
+    print(f"phase 31c: all {len(ARCHS)} architectures at smoke shapes in the "
+          f"training layout, the same fp32 masters and batch on {card} and "
+          f"on the CPU: one step's gradients within {out['fp32']:.3g} of each "
+          f"leaf's largest |g| at fp32 (limit {GRAD_FP32_RTOL}), "
+          f"{out['bf16']:.3g} in bf16 (limit {GRAD_BF16_RTOL}; global norm "
+          f"within {out['gnorm_bf16']:.3g}, limit {GNORM_BF16_RTOL}); "
+          f"parameters after {CARD_CPU_STEPS} steps of each spec's recipe "
+          f"within {out['params']:.3g} of the model's move (limits "
+          f"{STEP_PARAM_RTOL}), every leaf with a gradient above the floor "
+          f"within {out['leaf']:.3g} of its own ({out['leaf_name']}; limits "
+          f"{STEP_LEAF_RTOL}); bf16 runs "
+          f"routed "
+          f"otherwise: {len(out['excused'])} [{'; '.join(out['excused'])}]",
+          flush=True)
+    return out
+
+
+def least_squares(torch, dev, compressed: bool, steps=LSQ_STEPS,
+                  shards=LSQ_SHARDS) -> tuple:
+    """The reference test's least-squares problem (W* [16, 4], X [64, 16],
+    Y = X W*, SGD at 0.05) on `shards` logical data shards on `dev`, the
+    shards' gradients averaged exactly or as int8 with error feedback
+    through the mesh's data axis.  Returns (final loss, data reductions,
+    wire bytes a step)."""
+    import numpy as np
+
+    from repro_torch.distributed import compression as C
+    from repro_torch.launch.mesh import make_host_mesh
+
+    rng = np.random.default_rng(0)
+    wt = torch.from_numpy(rng.standard_normal((16, 4)).astype(np.float32))
+    X = torch.from_numpy(rng.standard_normal((64, 16)).astype(np.float32))
+    X, Y = X.to(dev), (X @ wt).to(dev)
+    mesh = make_host_mesh(shards, 1, device=dev)
+    w = torch.zeros((16, 4), device=dev)
+    errs = [C.init_error_state({"w": w}) for _ in range(shards)]
+    rows = X.shape[0] // shards
+    for _ in range(steps):
+        grads = []
+        for d in range(shards):
+            wd = w.clone().requires_grad_(True)
+            x, y = X[d * rows:(d + 1) * rows], Y[d * rows:(d + 1) * rows]
+            torch.mean((x @ wd - y) ** 2).backward()
+            grads.append({"w": wd.grad})
+        if compressed:
+            qs, ss = [], []
+            for d in range(shards):
+                q, s_, errs[d] = C.compress_gradients(grads[d], errs[d])
+                qs.append(q)
+                ss.append(s_)
+            gm = C.allreduce_compressed(qs, ss, mesh.axis("data"))[0]["w"]
+        else:
+            gm = mesh.reduce("data", [[g["w"]] for g in grads])[0][0] / shards
+        w = w - 0.05 * gm
+    return (float(torch.mean((X @ w - Y) ** 2)), mesh.reductions["data"],
+            shards * C.wire_bytes({"w": w}, compressed))
+
+
+def phase_lm_train(torch, dev, fd, card) -> dict:
+    """(a) Llama 3.2 3B trained LLAMA_TRAIN_STEPS steps at full width, its
+    ce lowered, then served: the optimizer state freed, the serving copy
+    (bf16 matmul weights) through LMEngine(slots=16) with flash_decode
+    launches counted, and the greedy contract on 8 prompts; (b) Granite-MoE
+    3B, GRANITE_TRAIN_STEPS steps; (c) the ten architectures against the
+    CPU; (d) int8 gradient compression on 8 logical data shards."""
+    import gc
+
+    from repro_torch.nn import transformer as T
+
+    llama, model = train_full(torch, dev, LLAMA, LLAMA_TRAIN_STEPS, card,
+                              "31a")
+    if llama["params"] != LLAMA_PARAMS:
+        raise AssertionError(f"phase 31a: {llama['params']:,} parameters, "
+                             f"not {LLAMA_PARAMS:,}")
+    if not llama["ce_last"] < llama["ce_first"]:
+        raise AssertionError(f"phase 31a: ce {llama['ce_first']} at step 0, "
+                             f"{llama['ce_last']} at the last: not lowered")
+    served = T.serving_copy(model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = served.cfg
+    if {p.dtype for p in served.parameters()} != {torch.bfloat16,
+                                                  torch.float32} or any(
+            p.requires_grad for p in served.parameters()):
+        raise AssertionError("phase 31a: the serving copy is not the frozen "
+                             "bf16 serving layout")
+    prompts = lm_prompts(TRAINED_REQUESTS, cfg.vocab, seed=47,
+                         lens=TRAINED_PROMPTS)
+    kw = dict(slots=TRAINED_SLOTS, new=TRAINED_NEW, max_len=TRAINED_MAX_LEN)
+    serve_lm(torch, dev, cfg, served, prompts[:2], fd, "trained warm-up",
+             **kw)
+    run = serve_lm(torch, dev, cfg, served, prompts, fd, "trained llama",
+                   **kw)
+    llama.update(launches=run["launches"], serve_wall_s=run["wall"],
+                 serve_tokens_per_s=TRAINED_REQUESTS * TRAINED_NEW
+                 / run["wall"], decode_steps=run["dispatches"])
+    print(f"phase 31a: the trained copy (bf16 serving layout, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card) served "
+          f"{TRAINED_REQUESTS} greedy requests (prompts {TRAINED_PROMPTS[0]}-"
+          f"{TRAINED_PROMPTS[1]} tokens, {TRAINED_NEW} new) through "
+          f"LMEngine(slots={TRAINED_SLOTS}, paged bs={LM_BLOCK}, chunk="
+          f"{LM_CHUNK}): all complete, no non-finite logit; wall "
+          f"{run['wall'] * 1e3:.1f} ms, {llama['serve_tokens_per_s']:.1f} "
+          f"generated tokens/s; flash_decode launches {run['launches']} = "
+          f"{cfg.n_layers} x {run['dispatches']}", flush=True)
+    del run
+    llama["diverged"], llama["d0"], _ = greedy_contract(
+        torch, dev, cfg, served, prompts[:8], "bf16", "31a",
+        steps=TRAINED_NEW)
+    del served
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    granite, model = train_full(torch, dev, GRANITE, GRANITE_TRAIN_STEPS,
+                                card, "31b", profile=False)
+    if granite["params"] != GRANITE_PARAMS:
+        raise AssertionError(f"phase 31b: {granite['params']:,} parameters")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    card_cpu = phase_train_card_cpu(torch, dev, card)
+
+    t0 = time.perf_counter()
+    exact, n_exact, b_exact = least_squares(torch, dev, False)
+    int8, n_int8, b_int8 = least_squares(torch, dev, True)
+    if not (exact < 1e-2 and int8 < 5e-2):
+        raise AssertionError(f"phase 31d: final losses exact {exact}, int8 "
+                             f"{int8}: the reference test's bounds are 1e-2 "
+                             "and 5e-2")
+    print(f"phase 31d: the reference test's least squares on {LSQ_SHARDS} "
+          f"logical data shards on {card}, {LSQ_STEPS} SGD steps each: final "
+          f"loss {exact:.3g} exact (bound 1e-2), {int8:.3g} int8 with error "
+          f"feedback (bound 5e-2); {n_exact} and {n_int8} data-axis "
+          f"reductions; {b_exact} and {b_int8} payload bytes a step; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return {"llama": llama, "granite": granite, "card_cpu": card_cpu,
+            "compression": {"exact": exact, "int8": int8,
+                            "reductions": [n_exact, n_int8],
+                            "bytes": [b_exact, b_int8]},
+            "launches": llama["launches"]}
+
+
 def main() -> int:
     import torch
 
@@ -3877,6 +4317,7 @@ def main() -> int:
         STARCODER: phase_fd_timing(torch, dev, fd, starcoder["lens"], card,
                                    g=2, rep=12, dh=128, kvs=("bf16",),
                                    phase=30, gate=False)["bf16"]}
+    lm_train = phase_lm_train(torch, dev, fd, card)
 
     src = "src/repro_torch/kernels/resonator_step/csrc/resonator_step.cu"
     kernels = [
@@ -3914,7 +4355,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_decode/kernel.py:87",
          "launches": fd_launches[kv], "max_abs_err": fd_err[kv],
          **fd_times[kv],
-         **({"runtime_launches": rt_run["launches"]["flash_decode"]}
+         **({"runtime_launches": rt_run["launches"]["flash_decode"],
+             "trained_launches": lm_train["launches"]}
             if kv == "bf16" else {})}
         for kv in ("bf16", "int8")
     ] + [

@@ -66,22 +66,26 @@ def qtensor_from_reference(qt, device=DEFAULT_DEVICE) -> QTensor:
     return QTensor(v, scale).to(dev)
 
 
-def lm_params_from_reference(np_params: dict, cfg, device=DEFAULT_DEVICE):
+def lm_params_from_reference(np_params: dict, cfg, device=DEFAULT_DEVICE,
+                             trainable: bool = False):
     """The reference's ``transformer.init`` tree (numpy leaves; ``blocks`` a
     list over pattern positions whose leaves are stacked ``[P, ...]`` over
     periods; ``enc_blocks`` likewise over the encoder's layers) as the
     port's :class:`repro_torch.nn.transformer.LM` on ``device``.  Layer
     ``p * period + bi`` takes ``blocks[bi][...][p]``.  Each leaf is stored
-    in :func:`~repro_torch.nn.transformer.stored_dtype`: fp32 for norms
-    and Mamba's ``A_log`` (which the reference reads without a cast),
-    ``cfg.activ_dtype`` for every other leaf (which it casts on each use)."""
+    in :func:`~repro_torch.nn.transformer.stored_dtype`: in the serving
+    layout (the default) fp32 for norms and Mamba's ``A_log`` (which the
+    reference reads without a cast), ``cfg.activ_dtype`` for every other
+    leaf (which it casts on each use); with ``trainable=True``, the
+    training layout, every leaf in ``cfg.param_dtype`` and trainable."""
     from repro_torch.nn import transformer as T
 
     dev = resolve(device)
 
     def leaf(a, path, index=None):
         a = np.array(a if index is None else np.asarray(a)[index], np.float32)
-        return torch.from_numpy(a).to(T.stored_dtype(cfg, path)).to(dev)
+        return torch.from_numpy(a).to(
+            T.stored_dtype(cfg, path, trainable)).to(dev)
 
     def tree(t, path, index=None):
         return {k: tree(v, path + (k,), index) if isinstance(v, dict)
@@ -100,7 +104,55 @@ def lm_params_from_reference(np_params: dict, cfg, device=DEFAULT_DEVICE):
     return T.LM(cfg, leaf(np_params["embed"], ("embed",)),
                 stack(np_params["blocks"], cfg.n_layers, cfg.period),
                 tree(np_params["final_ln"], ("final_ln",)),
-                None if head is None else leaf(head, ("lm_head",)), encoder)
+                None if head is None else leaf(head, ("lm_head",)), encoder,
+                trainable)
+
+
+def lm_params_to_reference(model, grads: bool = False) -> dict:
+    """The port's :class:`~repro_torch.nn.transformer.LM` as the reference's
+    ``transformer.init`` tree of float32 numpy arrays (``blocks`` a list
+    over pattern positions, each leaf stacked ``[P, ...]`` over periods;
+    ``enc_blocks`` over the encoder's layers); with ``grads=True``, the
+    parameters' ``.grad`` in that tree (zeros where a parameter has none),
+    so that gradients compare leaf by leaf with ``jax.grad``'s.  The
+    inverse of :func:`lm_params_from_reference`."""
+    cfg = model.cfg
+
+    def host(t):
+        if grads:
+            t = t.grad if t.grad is not None else torch.zeros_like(t)
+        return _host(t)
+
+    def tree(t):
+        return ({k: tree(v) for k, v in t.items()} if isinstance(t, dict)
+                else host(t))
+
+    def stack(layers: list, period: int) -> list:
+        out = []
+        for bi in range(period):
+            per = [tree(b) for b in layers[bi::period]]
+            out.append(_stack(per))
+        return out
+
+    t = model.tree()
+    params = {"embed": host(t["embed"]),
+              "final_ln": tree(t["final_ln"]),
+              "blocks": stack(t["blocks"], cfg.period)}
+    if t["lm_head"] is not None:
+        params["lm_head"] = host(t["lm_head"])
+    if t["encoder"] is not None:
+        params["enc_blocks"] = stack(t["encoder"]["blocks"], 1)
+        params["enc_ln"] = tree(t["encoder"]["ln"])
+        params["enc_pos"] = host(t["encoder"]["pos"])
+    return params
+
+
+def _stack(trees: list):
+    """Nested dicts of arrays, one a layer -> one dict of arrays stacked on
+    a new leading axis."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
 
 
 def mimonet_params_from_reference(np_params: dict, device=DEFAULT_DEVICE):

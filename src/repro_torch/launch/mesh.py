@@ -46,9 +46,11 @@ class Mesh:
             raise ValueError(f"mesh axes are {AXES}, not {name!r}")
         return MeshAxis(self, name)
 
-    def reduce(self, axis: str, parts) -> list:
-        """Sum over the shards of ``axis``, in shard order, landing on each
-        shard's device: one collective, like a ``psum`` over that axis.
+    def reduce(self, axis: str, parts, op: str = "sum") -> list:
+        """Sum (or, with ``op="max"``, elementwise maximum) over the shards
+        of ``axis``, in shard order, landing on each shard's device: one
+        collective, like a ``psum`` (``pmax``) over that axis, counted in
+        ``reductions`` either way.
 
         ``parts[d][m]`` is shard (d, m)'s tensor on ``devices[d][m]``.
         Returns the same grid of sums: for ``"model"``, entry (d, m) is
@@ -58,6 +60,9 @@ class Mesh:
         """
         if axis not in AXES:
             raise ValueError(f"mesh axes are {AXES}, not {axis!r}")
+        combine = {"sum": torch.add, "max": torch.maximum}.get(op)
+        if combine is None:
+            raise ValueError(f"reduce ops are 'sum' and 'max', not {op!r}")
         D, M = self.shape["data"], self.shape["model"]
         if len(parts) != D or any(len(row) != M for row in parts):
             raise ValueError(f"reduce needs a [{D}][{M}] grid of parts")
@@ -70,7 +75,7 @@ class Mesh:
             d0, m0 = group[0]
             total = parts[d0][m0]
             for d, m in group[1:]:
-                total = total + parts[d][m].to(total.device)
+                total = combine(total, parts[d][m].to(total.device))
             landed = {}
             for d, m in group:
                 dev = self.devices[d][m]
@@ -92,8 +97,8 @@ class MeshAxis:
     def size(self) -> int:
         return self.mesh.shape[self.name]
 
-    def reduce(self, parts) -> list:
-        return self.mesh.reduce(self.name, parts)
+    def reduce(self, parts, op: str = "sum") -> list:
+        return self.mesh.reduce(self.name, parts, op)
 
 
 def make_host_mesh(data: int = 4, model: int = 2,

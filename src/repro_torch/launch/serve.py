@@ -189,6 +189,7 @@ class ServeEngine:
         if self.paged is not None:
             self.blocks.release(slot)
 
+    @torch.no_grad()
     def add_request(self, slot: int, prompt, sampling=None):
         """Prefill a prompt into one slot.
 
@@ -283,6 +284,7 @@ class ServeEngine:
                 self.active[s] = False
                 self.overflowed[s] = True
 
+    @torch.no_grad()
     def step(self, sampler="greedy", temperature=1.0, key=None):
         """One decode step for the active slots; returns the sampled tokens
         ([slots] int64 tensor on the CPU; entries of inactive slots are

@@ -13,7 +13,9 @@ threads the stacked KV *pool* (shared physical blocks) plus a block
     one call per chunk instead of one per token, causally masked per query
     so the emitted logits equal the token-by-token path.
 
-The pool is written in place (the reference donates it).  Paging takes
+The pool is written in place (the reference donates it).  Both entry
+points run under ``torch.no_grad()``: serving builds no graph, whatever the
+model's layout and the caller's grad mode.  Paging takes
 attention-only stacks, with an MLP or MoE half (``attn_mlp`` /
 ``attn_moe``; each layer's kind from ``block_pattern``):
 :func:`check_paging_supported` rejects stateful block patterns (mamba /
@@ -68,6 +70,7 @@ def layer_pool(pool: dict, layer: int) -> dict:
     return {k: v[layer] for k, v in pool.items()}
 
 
+@torch.no_grad()
 def decode_step_paged(model, cfg, pool: dict, table, kv_lens, tokens, active,
                       *, use_flash: bool = True) -> tuple:
     """One decode step. tokens [B, 1]; table [B, W] int32; kv_lens [B]
@@ -83,6 +86,7 @@ def decode_step_paged(model, cfg, pool: dict, table, kv_lens, tokens, active,
     return T._logits(model, cfg, x), pool
 
 
+@torch.no_grad()
 def prefill_chunk_paged(model, cfg, pool: dict, row_table, len0: int, tokens,
                         count: int) -> tuple:
     """Prefill one static-width chunk for one slot.  tokens [1, C] (first

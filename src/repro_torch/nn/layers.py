@@ -18,6 +18,11 @@ two serving layouts:
     (:func:`attention_decode_paged`) and chunked prefill with a dense
     causal mask (:func:`attention_prefill_paged`).
 
+The full-sequence layers are differentiable (training); where the
+reference checkpoints a loop body for its backward pass (the KV-block body
+of :func:`flash_attention`), the port runs the same body under
+``torch.utils.checkpoint`` whenever autograd records it (:func:`recording`).
+
 KV caches and pools are mutable serving state (the reference donates them
 through its jitted dispatches): the port writes new KV into them in place
 with ``index_put_`` and returns the same dicts.
@@ -28,8 +33,22 @@ import dataclasses
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 _NEG = -1e30  # the reference's mask sentinel
+
+
+def recording(*tensors) -> bool:
+    """Whether autograd records an op on ``tensors`` now: grad mode on and
+    one of them (a tensor, or a mapping of tensors such as a layer's
+    parameters) requiring grad."""
+    if not torch.is_grad_enabled():
+        return False
+    for t in tensors:
+        ts = (t,) if isinstance(t, torch.Tensor) else t.values()
+        if any(x.requires_grad for x in ts):
+            return True
+    return False
 
 
 # ---------------------------------------------------------------------------
@@ -191,8 +210,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     repeated up to H).  Keys are padded to a multiple of ``block`` and
     visited block by block in order, each keeping a running max, sum and
     fp32 accumulator; masked scores are -1e30, as in the reference, so the
-    numbers are the reference's up to fp32 summation order.  Returns
-    [B, Sq, H, dh] in q's dtype.
+    numbers are the reference's up to fp32 summation order.  Under
+    autograd each block runs under a checkpoint, as the reference's scan
+    body does, so the backward pass keeps no [B, Sq, H, block] scores of
+    any block.  Returns [B, Sq, H, dh] in q's dtype.
     """
     B, Sq, H, dh = q.shape
     Sk, G = k.shape[1], k.shape[2]
@@ -206,10 +227,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     m = torch.full((B, Sq, H), _NEG, dtype=torch.float32, device=dev)
     l = torch.zeros((B, Sq, H), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, Sq, H, dh), dtype=torch.float32, device=dev)
-    neg = torch.full((), _NEG, dtype=torch.float32, device=dev)
-    for j0 in range(0, Sk, block):
-        kj = k[:, j0:j0 + block].float()
-        vj = v[:, j0:j0 + block].float()
+
+    def body(m, l, acc, kj, vj, j0: int):
+        """One KV block: the running (m, l, acc) updated."""
+        kj, vj = kj.float(), vj.float()
         n = kj.shape[1]
         if n < block:  # the padded tail of the last block
             kj = torch.nn.functional.pad(kj, (0, 0, 0, 0, 0, block - n))
@@ -219,13 +240,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         valid = (kv_pos < Sk)[None, :]
         if causal:
             valid = valid & (kv_pos[None, :] <= q_pos[:, None])
-        s = torch.where(valid[None, :, None, :], s, neg)
+        s = torch.where(valid[None, :, None, :], s,
+                        torch.full((), _NEG, dtype=torch.float32, device=dev))
         m_new = torch.maximum(m, s.amax(-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(-1)
         acc = acc * corr[..., None] + torch.einsum("bqhk,bkhd->bqhd", p, vj)
-        m = m_new
+        return m_new, l, acc
+
+    remat = recording(qf, k, v)
+    for j0 in range(0, Sk, block):
+        args = (m, l, acc, k[:, j0:j0 + block], v[:, j0:j0 + block], j0)
+        m, l, acc = (checkpoint(body, *args, use_reentrant=False) if remat
+                     else body(*args))
     out = acc / torch.clamp(l[..., None], min=1e-30)
     return out.to(q.dtype)
 

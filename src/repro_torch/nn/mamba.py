@@ -8,7 +8,9 @@ the products are the reference's up to the state read-out's fp32 sum over
 N.  Decode is the O(1) recurrent update.  Elementwise steps run in the
 working type one op at a time, as the reference's do (``softplus`` as
 ``logaddexp(x, 0)``, ``silu`` as in :mod:`repro_torch.nn.layers`);
-``A_log`` is read in fp32, as the reference reads it.
+``A_log`` is read in fp32, as the reference reads it.  Under autograd
+each chunk of the full sequence runs under a checkpoint, as the
+reference's chunk body does.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import dataclasses
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.nn import layers as L
 
@@ -144,10 +147,19 @@ def mamba(p, x: torch.Tensor, cfg: MambaConfig, state: dict | None = None
         if pad_s:
             u = torch.nn.functional.pad(u, (0, 0, 0, pad_s))
         h = torch.zeros((B, di, N), dtype=torch.float32, device=x.device)
+
+        def chunk_body(h, u_chunk):
+            return _chunk_scan(h, *_ssm_inputs(p, u_chunk, cfg))
+
+        # under autograd each chunk is checkpointed, as the reference's
+        # scan body is: its [B, chunk, di, N] elements are rebuilt in the
+        # backward pass, not kept for every chunk
+        remat = L.recording(u, p)
         ys = []
         for c0 in range(0, u.shape[1], cfg.chunk):
-            h, y_c = _chunk_scan(h, *_ssm_inputs(p, u[:, c0:c0 + cfg.chunk],
-                                                 cfg))
+            args = (h, u[:, c0:c0 + cfg.chunk])
+            h, y_c = (checkpoint(chunk_body, *args, use_reentrant=False)
+                      if remat else chunk_body(*args))
             ys.append(y_c)
         y = torch.cat(ys, 1)[:, :S]
         y = y.to(x.dtype) + u[:, :S] * p["D"].to(x.dtype)

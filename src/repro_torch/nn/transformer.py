@@ -10,27 +10,38 @@ each layer's kind:
 The model is an ``nn.Module``, :class:`LM`: the embedding, one block per
 layer (layer ``i`` is of kind ``block_pattern[i % period]``), ``final_ln``,
 ``lm_head`` and, for encoder-decoder stacks, the encoder's blocks,
-``enc_ln`` and ``enc_pos``.  The reference keeps fp32 parameters and casts
-every matmul weight (and bias) to ``activ_dtype`` on each call; the port
-stores those already in ``activ_dtype``, which gives the same numbers and
-halves the bytes a bf16 step reads.  What the reference reads in fp32 stays
-fp32: norm scales and biases, and Mamba's ``A_log`` (:func:`stored_dtype`).
-The reference's scan over stacked periods is a Python loop over layers.
+``enc_ln`` and ``enc_pos``.
 
-Entry points: :func:`forward` (full sequence), :func:`loss_fn` (next-token
-CE plus the MoE aux terms; evaluated, not trained here), :func:`init_cache`
-and :func:`decode_step` (one token against the contiguous caches, written in
-place for the ``active`` rows), :func:`abstract_init` and
-:func:`count_params_cfg` (shapes only).
+Two storage layouts.  The reference keeps fp32 parameters and casts every
+matmul weight (and bias) to ``activ_dtype`` on each call.  The **training
+layout** (``init(..., trainable=True)``) is the reference's: every leaf in
+``cfg.param_dtype`` (fp32), a trainable ``nn.Parameter``, cast on use.  The
+**serving layout** (the default) is frozen and stores the matmul weights
+already in ``activ_dtype``, which gives the same numbers and halves the
+bytes a bf16 step reads; what the reference reads in fp32 stays fp32: norm
+scales and biases, and Mamba's ``A_log`` (:func:`stored_dtype`).
+:func:`serving_copy` turns a trained model into the serving layout.  The
+reference's scan over stacked periods is a Python loop over layers.
+
+Entry points: :func:`forward` (full sequence) and :func:`loss_fn`
+(next-token CE plus the MoE aux terms), which build an autograd graph when
+the caller's grad mode and the parameters ask for one; under a graph with
+``cfg.remat`` each period runs under ``torch.utils.checkpoint``, as the
+reference's ``jax.checkpoint`` of its period body.  :func:`init_cache` and
+:func:`decode_step` (one token against the contiguous caches, written in
+place for the ``active`` rows; never differentiated), :func:`abstract_init`
+and :func:`count_params_cfg` (shapes only).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.device import DEFAULT_DEVICE, resolve
 from repro_torch.nn import layers as L
@@ -110,11 +121,14 @@ class ModelConfig:
             mrope_sections=None)
 
 
-def stored_dtype(cfg: ModelConfig, path: tuple):
-    """The dtype the port stores a parameter in, by its path of names: fp32
+def stored_dtype(cfg: ModelConfig, path: tuple, trainable: bool = False):
+    """The dtype the port stores a parameter in, by its path of names.  In
+    the training layout, ``cfg.param_dtype``.  In the serving layout: fp32
     for norm parameters (``ln*``, ``final_ln``, ``enc_ln``) and ``A_log``,
     which the reference reads without a cast; ``activ_dtype`` for the rest,
     which the reference casts to it on every use."""
+    if trainable:
+        return cfg.param_dtype
     if path[0] in ("final_ln", "enc_ln") or any(
             k.startswith("ln") for k in path[:-1]) or path[-1] == "A_log":
         return torch.float32
@@ -125,13 +139,22 @@ def stored_dtype(cfg: ModelConfig, path: tuple):
 # The module
 # ---------------------------------------------------------------------------
 
-def _as_module(tree: dict) -> nn.Module:
+def _as_module(tree: dict, trainable: bool) -> nn.Module:
     """A nested dict of tensors as ``ModuleDict`` / ``ParameterDict``s of
-    frozen parameters (layers read them as ``p["w"]``, as from a dict)."""
+    parameters, trainable or frozen (layers read them as ``p["w"]``, as
+    from a dict)."""
     if all(isinstance(v, torch.Tensor) for v in tree.values()):
-        return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
+        return nn.ParameterDict({k: nn.Parameter(v, requires_grad=trainable)
                                  for k, v in tree.items()})
-    return nn.ModuleDict({k: _as_module(v) for k, v in tree.items()})
+    return nn.ModuleDict({k: _as_module(v, trainable)
+                          for k, v in tree.items()})
+
+
+def _tree(module: nn.Module) -> dict:
+    """The inverse of :func:`_as_module`: nested dicts of the parameters."""
+    if isinstance(module, nn.ParameterDict):
+        return dict(module.items())
+    return {k: _tree(v) for k, v in module.items()}
 
 
 class LM(nn.Module):
@@ -139,11 +162,13 @@ class LM(nn.Module):
     ``attn`` with ``q``/``k``/``v``/``o`` dense weights ``[d_in, d_out]``,
     ``lnx``/``xattn``, ``mamba``, ``mlstm``, ``slstm``, ``ln2``, ``mlp`` or
     ``moe``), ``final_ln``, ``lm_head`` [d, V] (None when tied) and, with an
-    encoder, ``enc_blocks`` / ``enc_ln`` / ``enc_pos`` [n_frames, d]."""
+    encoder, ``enc_blocks`` / ``enc_ln`` / ``enc_pos`` [n_frames, d].  The
+    tensors are taken as they are; ``trainable`` says whether the
+    parameters require grad (the training layout) or are frozen."""
 
     def __init__(self, cfg: ModelConfig, embed: torch.Tensor, blocks: list,
                  final_ln: dict, lm_head: torch.Tensor | None,
-                 encoder: dict | None = None):
+                 encoder: dict | None = None, trainable: bool = False):
         super().__init__()
         if len(blocks) != cfg.n_layers:
             raise ValueError(f"{len(blocks)} blocks for {cfg.n_layers} layers")
@@ -151,17 +176,18 @@ class LM(nn.Module):
             raise ValueError(f"{cfg.name}: the encoder's parameters must be "
                              "given exactly when the config has an encoder")
         self.cfg = cfg
-        self.embed = nn.Parameter(embed, requires_grad=False)
-        self.blocks = nn.ModuleList(_as_module(b) for b in blocks)
-        self.final_ln = _as_module(final_ln)
+        self.embed = nn.Parameter(embed, requires_grad=trainable)
+        self.blocks = nn.ModuleList(_as_module(b, trainable) for b in blocks)
+        self.final_ln = _as_module(final_ln, trainable)
         self.lm_head = (None if lm_head is None
-                        else nn.Parameter(lm_head, requires_grad=False))
+                        else nn.Parameter(lm_head, requires_grad=trainable))
         self.enc_blocks = self.enc_ln = self.enc_pos = None
         if encoder is not None:
-            self.enc_blocks = nn.ModuleList(_as_module(b)
+            self.enc_blocks = nn.ModuleList(_as_module(b, trainable)
                                             for b in encoder["blocks"])
-            self.enc_ln = _as_module(encoder["ln"])
-            self.enc_pos = nn.Parameter(encoder["pos"], requires_grad=False)
+            self.enc_ln = _as_module(encoder["ln"], trainable)
+            self.enc_pos = nn.Parameter(encoder["pos"],
+                                        requires_grad=trainable)
 
     @property
     def head(self) -> torch.Tensor:
@@ -170,6 +196,19 @@ class LM(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    def tree(self) -> dict:
+        """The parameters as :class:`LM`'s arguments: ``embed``,
+        ``blocks`` (a list over layers of nested dicts), ``final_ln``,
+        ``lm_head`` (None when tied), ``encoder`` (None without one)."""
+        encoder = None
+        if self.enc_blocks is not None:
+            encoder = {"blocks": [_tree(b) for b in self.enc_blocks],
+                       "ln": _tree(self.enc_ln), "pos": self.enc_pos}
+        return {"embed": self.embed,
+                "blocks": [_tree(b) for b in self.blocks],
+                "final_ln": _tree(self.final_ln), "lm_head": self.lm_head,
+                "encoder": encoder}
 
 
 # ---------------------------------------------------------------------------
@@ -235,18 +274,25 @@ def _init_block(draw, kind: str, cfg: ModelConfig) -> dict:
     return p
 
 
-def cast_tree(cfg: ModelConfig, tree: dict, path: tuple = ()) -> dict:
-    """Every leaf of a parameter tree in its :func:`stored_dtype`."""
-    return {k: cast_tree(cfg, v, path + (k,)) if isinstance(v, dict)
-            else v.to(stored_dtype(cfg, path + (k,)))
-            for k, v in tree.items()}
+def cast_tree(cfg: ModelConfig, tree, path: tuple = (),
+              trainable: bool = False):
+    """``tree`` (a tensor, None, or nested dicts of them at ``path``) with
+    every leaf detached and copied into its :func:`stored_dtype`."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: cast_tree(cfg, v, path + (k,), trainable)
+                for k, v in tree.items()}
+    return tree.detach().to(stored_dtype(cfg, path, trainable), copy=True)
 
 
-def init(cfg: ModelConfig, generator=0, device=DEFAULT_DEVICE) -> LM:
+def init(cfg: ModelConfig, generator=0, device=DEFAULT_DEVICE,
+         trainable: bool = False) -> LM:
     """Random weights as the reference draws them (normal, times
     ``d_in ** -0.5`` for dense weights and ``d_model ** -0.5`` for the
     embedding and head; the reference's constants for biases, norms and
-    Mamba's and xLSTM's gates), on ``device``.
+    Mamba's and xLSTM's gates), on ``device``, in the serving layout or,
+    with ``trainable=True``, the training layout.
 
     An int ``generator`` seeds a generator ON ``device``, so a full-width
     model is drawn on the card in seconds rather than on the CPU in
@@ -263,24 +309,43 @@ def init(cfg: ModelConfig, generator=0, device=DEFAULT_DEVICE) -> LM:
         gen = (generator if isinstance(generator, torch.Generator)
                else torch.Generator(device=dev).manual_seed(int(generator)))
     draw = _Draw(gen, dev if gen is None else gen.device)
+    cast = functools.partial(cast_tree, cfg, trainable=trainable)
     scale = cfg.d_model ** -0.5
-    embed = draw((cfg.vocab, cfg.d_model), scale).to(cfg.activ_dtype)
+    embed = cast(draw((cfg.vocab, cfg.d_model), scale), ("embed",))
     head = None
     if not cfg.tie_embeddings:
-        head = draw((cfg.d_model, cfg.vocab), scale).to(cfg.activ_dtype)
-    blocks = [cast_tree(cfg, _init_block(draw, cfg.kind(i), cfg))
+        head = cast(draw((cfg.d_model, cfg.vocab), scale), ("lm_head",))
+    blocks = [cast(_init_block(draw, cfg.kind(i), cfg))
               for i in range(cfg.n_layers)]
     encoder = None
     if cfg.encoder is not None:
         e, ecfg = cfg.encoder, cfg.encoder_cfg()
         encoder = {
-            "blocks": [cast_tree(cfg, _init_block(draw, "attn_mlp", ecfg))
+            "blocks": [cast(_init_block(draw, "attn_mlp", ecfg))
                        for _ in range(e.n_layers)],
-            "ln": _norm_init(cfg, e.d_model, draw.device),
-            "pos": draw((e.n_frames, e.d_model), 0.01).to(cfg.activ_dtype)}
-    model = LM(cfg, embed, blocks, _norm_init(cfg, cfg.d_model, draw.device),
-               head, encoder)
+            "ln": cast(_norm_init(cfg, e.d_model, draw.device), ("enc_ln",)),
+            "pos": cast(draw((e.n_frames, e.d_model), 0.01), ("enc_pos",))}
+    final_ln = cast(_norm_init(cfg, cfg.d_model, draw.device), ("final_ln",))
+    model = LM(cfg, embed, blocks, final_ln, head, encoder, trainable)
     return model.to(dev)
+
+
+def serving_copy(model: LM) -> LM:
+    """A frozen copy of ``model`` in the serving layout: every leaf cast to
+    its :func:`stored_dtype` (bf16 matmul weights at the default
+    ``activ_dtype``) in new storage, so training the original on does not
+    move it.  Equal to :func:`repro_torch.convert.lm_params_from_reference`
+    of the same fp32 parameters."""
+    cast = functools.partial(cast_tree, model.cfg)
+    t = model.tree()
+    encoder = t["encoder"] and {
+        "blocks": [cast(b) for b in t["encoder"]["blocks"]],
+        "ln": cast(t["encoder"]["ln"], ("enc_ln",)),
+        "pos": cast(t["encoder"]["pos"], ("enc_pos",))}
+    return LM(model.cfg, cast(t["embed"], ("embed",)),
+              [cast(b) for b in t["blocks"]],
+              cast(t["final_ln"], ("final_ln",)),
+              cast(t["lm_head"], ("lm_head",)), encoder)
 
 
 def param_count(model: LM) -> int:
@@ -389,7 +454,38 @@ def _encoder_forward(model: LM, cfg: ModelConfig, frames: torch.Tensor):
     return _norm(cfg, model.enc_ln, x)
 
 
-@torch.no_grad()
+def _period(model: LM, cfg: ModelConfig, p0: int, x: torch.Tensor,
+            positions, enc_out) -> tuple:
+    """The layers of the period starting at layer ``p0``: (x, summed aux)."""
+    auxes: dict = {}
+    for i in range(p0, p0 + cfg.period):
+        x, aux = _apply_block(model.blocks[i], cfg.kind(i), cfg, x,
+                              positions, enc_out)
+        for k, v in aux.items():
+            auxes[k] = auxes.get(k, 0.0) + v
+    return x, auxes
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: keep
+    the outputs of 2-D matmuls (every ``x @ w``), recompute the rest
+    (batched products such as attention's and the experts' included)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)`` under the reference's remat of a period: ``"full"``
+    saves the period's inputs only and recomputes the rest in the backward
+    pass; any other policy also keeps the matmul outputs."""
+    kw = {}
+    if cfg.remat_policy != "full":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_matmuls)
+    return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
 def forward(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
             positions=None, vision_embeds=None, encoder_frames=None) -> tuple:
     """tokens [B, S] -> (logits [B, S, vocab] fp32, aux).  ``positions``
@@ -398,22 +494,20 @@ def forward(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
     ``encoder_frames`` [B, n_frames, d] feed the encoder.  ``aux`` sums the
     MoE layers' ``load_balance``, ``router_z`` and ``dropped_frac`` (per
     period, then over periods, as the reference's scan does; 0.0 without
-    MoE)."""
+    MoE).  Differentiable; with ``cfg.remat`` and a graph to build, each
+    period is checkpointed (:func:`_remat`), which moves no number."""
     B, S = tokens.shape
     x = _embed(model, cfg, tokens, vision_embeds)
     if positions is None and cfg.mrope_sections is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
     enc_out = (_encoder_forward(model, cfg, encoder_frames)
                if cfg.encoder is not None else None)
+    remat = cfg.remat and L.recording(*model.parameters())
     aux_acc = {"load_balance": 0.0, "router_z": 0.0, "dropped_frac": 0.0}
     per_period: dict = {}
     for p0 in range(0, cfg.n_layers, cfg.period):
-        auxes: dict = {}
-        for i in range(p0, p0 + cfg.period):
-            x, aux = _apply_block(model.blocks[i], cfg.kind(i), cfg, x,
-                                  positions, enc_out)
-            for k, v in aux.items():
-                auxes[k] = auxes.get(k, 0.0) + v
+        args = (model, cfg, p0, x, positions, enc_out)
+        x, auxes = _remat(cfg, _period, *args) if remat else _period(*args)
         for k, v in auxes.items():
             per_period.setdefault(k, []).append(v)
     for k, vs in per_period.items():
@@ -421,7 +515,6 @@ def forward(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
     return _logits(model, cfg, x), aux_acc
 
 
-@torch.no_grad()
 def loss_fn(model: LM, cfg: ModelConfig, batch: dict) -> tuple:
     """Next-token CE.  batch: ``tokens`` [B, S] (+ ``positions``,
     ``vision_embeds``, ``encoder_frames``, ``loss_mask`` [B, S]).  Returns

@@ -2,9 +2,10 @@
 
 The port of ``repro/nn/xlstm.py``.  xlstm-125m alternates the two block
 types.  Both are recurrences with O(1) decode state: the full sequence runs
-the exact recurrent form one token at a time (the reference's chunked scan
-only checkpoints chunks for its backward pass; the numbers are the plain
-scan's either way).
+the exact recurrent form one token at a time.  Under autograd the steps
+run in checkpointed chunks of ``chunk`` tokens, as the reference's
+``_chunked_scan`` does (:func:`_chunked_steps`); the numbers are the plain
+loop's either way.
 
 mLSTM state per head: matrix memory C [dh, dh], normaliser n [dh], gate
 stabiliser m [].  sLSTM state per model dim: c, n, m, h.  Exponential
@@ -16,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.nn import layers as L
 
@@ -25,7 +27,7 @@ class XLSTMConfig:
     d_model: int
     n_heads: int = 4
     expand: int = 2  # mLSTM up-projection factor
-    chunk: int = 64  # the reference's BPTT chunk (no effect on the numbers)
+    chunk: int = 64  # BPTT chunk: residuals saved once per chunk, not per step
 
     @property
     def d_inner(self) -> int:
@@ -34,6 +36,30 @@ class XLSTMConfig:
     @property
     def dh(self) -> int:
         return self.d_inner // self.n_heads
+
+
+def _chunked_steps(step, carry: tuple, S: int, chunk: int,
+                   remat: bool) -> tuple:
+    """``carry, h = step(carry, t)`` for t in 0..S-1 -> (carry, the h's
+    stacked on axis 1).  With ``remat`` (autograd recording), S a multiple
+    of ``chunk`` and longer than one chunk, each chunk of steps runs under a
+    checkpoint, so the backward pass keeps one carry a chunk rather than
+    every step's residuals: the reference's ``_chunked_scan``, with its
+    plain-loop fallback."""
+    def run(carry, t0: int, t1: int):
+        hs = []
+        for t in range(t0, t1):
+            carry, h = step(carry, t)
+            hs.append(h)
+        return carry, torch.stack(hs, 1)
+
+    if not remat or chunk <= 1 or S % chunk or S <= chunk:
+        return run(carry, 0, S)
+    outs = []
+    for t0 in range(0, S, chunk):
+        carry, h = checkpoint(run, carry, t0, t0 + chunk, use_reentrant=False)
+        outs.append(h)
+    return carry, torch.cat(outs, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -85,13 +111,16 @@ def mlstm(p, x: torch.Tensor, cfg: XLSTMConfig, state=None) -> tuple:
     f_pre = (xi @ p["f_gate"].to(x.dtype) + p["f_bias"].to(x.dtype)).float()
     if state is None:
         state = init_mlstm_state(B, cfg, x.device)
-    C, n, m = state["C"], state["n"], state["m"]
-    hs = []
-    for t in range(S):
-        C, n, m, h = _mlstm_step(C, n, m, q[:, t], k[:, t], v[:, t],
+
+    def step(carry, t):
+        C, n, m, h = _mlstm_step(*carry, q[:, t], k[:, t], v[:, t],
                                  i_pre[:, t], f_pre[:, t], o[:, t])
-        hs.append(h)
-    h = torch.stack(hs, 1).reshape(B, S, cfg.d_inner).to(x.dtype)
+        return (C, n, m), h
+
+    (C, n, m), h = _chunked_steps(
+        step, (state["C"], state["n"], state["m"]), S, cfg.chunk,
+        L.recording(x, p))
+    h = h.reshape(B, S, cfg.d_inner).to(x.dtype)
     y = (h * L._silu(z)) @ p["down"].to(x.dtype)
     return y, {"C": C, "n": n, "m": m}
 
@@ -144,12 +173,14 @@ def slstm(p, x: torch.Tensor, cfg: XLSTMConfig, state=None) -> tuple:
     xz = x @ p["zi"].to(x.dtype)  # [B, S, 4d]
     if state is None:
         state = init_slstm_state(B, cfg, x.device)
-    c, n, m, h = state["c"], state["n"], state["m"], state["h"].to(x.dtype)
-    hs = []
-    for t in range(S):
-        c, n, m, h = _slstm_step(p, c, n, m, h, xz[:, t])
-        hs.append(h)
-    hseq = torch.stack(hs, 1)  # [B, S, d]
+
+    def step(carry, t):
+        carry = _slstm_step(p, *carry, xz[:, t])
+        return carry, carry[3]
+
+    (c, n, m, h), hseq = _chunked_steps(  # hseq [B, S, d]
+        step, (state["c"], state["n"], state["m"], state["h"].to(x.dtype)),
+        S, cfg.chunk, L.recording(x, p))
     a, b = torch.chunk(hseq @ p["up"].to(x.dtype), 2, dim=-1)
     y = torch.cat([L._gelu(a), b], -1) @ p["down"].to(x.dtype)
     return y, {"c": c, "n": n, "m": m, "h": h.float()}

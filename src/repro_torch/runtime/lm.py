@@ -40,6 +40,7 @@ from collections import deque
 from typing import Any
 
 import numpy as np
+import torch
 
 from repro_torch import obs as obs_mod
 from repro_torch.cogsim import model as hw_model
@@ -266,9 +267,11 @@ class LMEngine:
             finished.append(req)
         return finished
 
+    @torch.no_grad()
     def step(self) -> list:
         """Fill free slots (prefill), run one adSCH-sized decode burst,
-        retire finished slots.  Returns the requests completed this step."""
+        retire finished slots (under ``torch.no_grad()``: serving builds no
+        graph).  Returns the requests completed this step."""
         obs = self.obs
         with obs.span("step", track=self.obs_track, cat="engine") as sp:
             with obs.span("fill", track=self.obs_track, cat="engine"):

@@ -108,18 +108,26 @@ class AdamW(_Base):
                 "v": torch.zeros_like(p, dtype=group["state_dtype"])}
 
     def _update(self, p, g, state, group, step, lr):
+        # The reference's arithmetic op for op, written in place: fp32
+        # moments are updated where they lie, and a leaf costs two
+        # leaf-sized temporaries (a full-width model's largest leaf is
+        # 1.58 GB), not seven.
         b1, b2 = group["b1"], group["b2"]
         bc1 = float(f32(1) - f32(b1) ** f32(step))
         bc2 = float(f32(1) - f32(b2) ** f32(step))
         g = g.float()
-        m32 = b1 * state["m"].float() + (1 - b1) * g
-        v32 = b2 * state["v"].float() + (1 - b2) * g * g
-        u = (m32 / bc1) / (torch.sqrt(v32 / bc2) + group["eps"])
+        m32, v32 = state["m"].float(), state["v"].float()  # copies if bf16
+        m32.mul_(b1).add_((1 - b1) * g)
+        v32.mul_(b2).add_((1 - b2) * g * g)
+        den = (v32 / bc2).sqrt_().add_(group["eps"])
+        u = (m32 / bc1).div_(den)
+        del den
         if group["weight_decay"]:
-            u = u + group["weight_decay"] * p.float()
-        p.copy_(p - lr * u.to(p.dtype))
-        state["m"].copy_(m32)
-        state["v"].copy_(v32)
+            u.add_(group["weight_decay"] * p.float())
+        p.sub_(u.to(p.dtype).mul_(lr))
+        if m32 is not state["m"]:
+            state["m"].copy_(m32)
+            state["v"].copy_(v32)
 
 
 class Adafactor(_Base):

@@ -1231,3 +1231,101 @@ def test_cnn_params_round_trip_through_the_reference_layout_on_the_card(cuda):
         assert q.device.type == "cuda" and torch.equal(p, q), k
     assert convert.cnn_params_to_reference(model)["conv0_w"].shape == \
         (3, 3, 1, 32)
+
+
+def _lm_batch(cfg, dev, B=2, S=16, seed=1):
+    rng = np.random.default_rng(seed)
+    return {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)).to(dev)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "granite-moe-3b-a800m"])
+def test_a_smoke_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """fp32 masters and activations, the same batch: the loss within 1e-5
+    relative, every gradient within 2e-5 of its leaf's largest |g| (at
+    least 1e-3 of the model's largest), and the parameters after one
+    AdamW step of ``build_train_step`` within 1e-3 of how far each leaf moved."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import train as TR
+    from repro_torch.nn import transformer as T
+    spec = registry.get(arch)
+    cfg = dataclasses.replace(spec.smoke(), activ_dtype=torch.float32)
+    got = {}
+    for dev in ("cpu", cuda):
+        model = T.init(cfg, torch.Generator().manual_seed(4), "cpu",
+                       trainable=True).to(dev)
+        start = [p.detach().cpu().clone() for p in model.parameters()]
+        loss, _ = T.loss_fn(model, cfg, _lm_batch(cfg, dev))
+        loss.backward()
+        grads = [p.grad.cpu() for p in model.parameters()]
+        model.zero_grad(set_to_none=True)
+        _, step = TR.build_train_step(model, spec, 4)
+        _, m = step(None, _lm_batch(cfg, dev, seed=2))
+        got[str(dev)] = (float(loss.detach()), grads,
+                         [p.detach().cpu() for p in model.parameters()],
+                         start)
+    (lg, gg, pg, _), (lc, gc, pc, start) = got[str(cuda)], got["cpu"]
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    top = max(float(g.abs().max()) for g in gc)
+    for a, b in zip(gg, gc):
+        scale = max(float(b.abs().max()), 1e-3 * top)
+        assert float((a - b).abs().max()) <= 2e-5 * scale
+    for a, b, s in zip(pg, pc, start):
+        assert float((a - b).norm()) <= 1e-3 * float((b - s).norm())
+
+
+@pytest.mark.cuda
+def test_remat_full_holds_less_for_the_backward_pass(cuda):
+    """Llama 3.2 3B's widths (d 3072, 24/8 heads of 128, d_ff 8192) at 8
+    layers, vocab cut to 512, 2 x 1024 tokens, bf16 activations: with
+    remat "full" the memory held from the forward pass for the backward
+    (allocated after the loss, less the parameters) is under a quarter of
+    what it is without remat, the peak over forward and backward is lower,
+    and the gradients are the same."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.nn import transformer as T
+    base = dataclasses.replace(registry.get("llama3.2-3b").full(),
+                               n_layers=8, vocab=512)
+    batch = _lm_batch(base, cuda, B=2, S=1024)
+    held, peak, grads = {}, {}, {}
+    for remat in (False, True):
+        cfg = dataclasses.replace(base, remat=remat)
+        model = T.init(cfg, 0, cuda, trainable=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        floor = torch.cuda.memory_allocated()
+        loss, _ = T.loss_fn(model, cfg, batch)
+        held[remat] = torch.cuda.memory_allocated() - floor
+        loss.backward()
+        torch.cuda.synchronize()
+        peak[remat] = torch.cuda.max_memory_allocated() - floor
+        grads[remat] = [p.grad.float().norm().item()
+                        for p in model.parameters()]
+        del model, loss
+        torch.cuda.empty_cache()
+    assert held[True] < 0.25 * held[False], held
+    assert peak[True] < peak[False], peak
+    np.testing.assert_allclose(grads[True], grads[False], rtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_a_trainable_forward_builds_a_graph_and_its_serving_copy_none(cuda):
+    from repro_torch.configs import registry
+    from repro_torch.nn import transformer as T
+    cfg = registry.get("llama3.2-3b").smoke()
+    model = T.init(cfg, 0, cuda, trainable=True)
+    toks = _lm_batch(cfg, cuda)["tokens"]
+    logits, _ = T.forward(model, cfg, toks)
+    assert logits.requires_grad and logits.grad_fn is not None
+    served = T.serving_copy(model)
+    assert all(p.device.type == "cuda" and not p.requires_grad
+               for p in served.parameters())
+    assert served.embed.dtype == torch.bfloat16
+    out, _ = T.forward(served, cfg, toks)
+    assert not out.requires_grad and out.grad_fn is None
+    torch.testing.assert_close(out, logits.detach(), rtol=0, atol=0)

@@ -1,6 +1,6 @@
 """The port's boundary: ``repro_torch``, ``chip_smoke.py``, the port's
-examples (``examples/torch_*.py``), ``tools/train_phase.py`` and
-``tools/lm_stack_phase.py`` use no JAX
+examples (``examples/torch_*.py``), ``tools/train_phase.py``,
+``tools/lm_stack_phase.py`` and ``tools/lm_train_phase.py`` use no JAX
 and nothing of the reference package ``repro``.
 
 Importing is checked in a fresh subprocess, because this test process has
@@ -18,7 +18,8 @@ CHIP_SMOKE = ROOT / "chip_smoke.py"
 SCRIPTS = [CHIP_SMOKE, ROOT / "examples" / "torch_raven_abduction.py",
            ROOT / "examples" / "torch_mimonet_superposition.py",
            ROOT / "tools" / "train_phase.py",
-           ROOT / "tools" / "lm_stack_phase.py"]
+           ROOT / "tools" / "lm_stack_phase.py",
+           ROOT / "tools" / "lm_train_phase.py"]
 
 _IMPORT_ALL = """
 import importlib, importlib.util, pkgutil, sys
@@ -44,7 +45,7 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 93  # every package and module of the port, the LM
+    assert int(count) >= 97  # every package and module of the port, the LM
     # serving slice's (nn, configs, lm, launch, runtime, flash_decode), the
     # sharded engine's (launch.mesh, engine.sharding), MIMONet's
     # (kernels.circconv, models.mimonet, core.superposition), NVSA's
@@ -52,8 +53,9 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
     # supervised runtime's (runtime.{protocol,telemetry,faults,fleet,
     # runtime}, obs.{slo,report}) and training's (train, train.{optimizer,
     # checkpoint,loop}, models.prae) and the rest of the LM stack's
-    # (nn.{moe,mamba,xlstm} and the nine other architectures' configs)
-    # included
+    # (nn.{moe,mamba,xlstm} and the nine other architectures' configs) and
+    # LM training's (data.tokens, launch.train, distributed,
+    # distributed.compression) included
     assert bad == "[]"
 
 

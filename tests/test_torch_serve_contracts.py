@@ -7,7 +7,12 @@ Plus slot reuse on a stateful stack: an xLSTM slot released and served
 again must start from a fresh state (its stabiliser ``m`` at -1e9, not
 zero), so a second request in a reused slot matches a fresh engine bit for
 bit.
+
+Plus the reference's continuous-batching case (``tests/test_train_infra.py``)
+and a model in the training layout served with grad mode on.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -164,3 +169,51 @@ def test_reused_xlstm_slot_starts_from_a_fresh_state(second):
         clean.step()
         assert torch.equal(eng.last_logits[0], clean.last_logits[0])
     assert eng.generated[0] == clean.generated[0]
+
+
+def test_serve_engine_continuous_batching():
+    """The reference's ``tests/test_train_infra.py`` case on the port:
+    minicpm-2b smoke, two slots of 24, one request prefilled, both slots
+    decoding 6 steps from the prompt's last token."""
+    cfg = registry.get("minicpm-2b").smoke()
+    model = T.init(cfg, 0, "cpu")
+    eng = ServeEngine(cfg, model, batch_slots=2, max_len=24, device="cpu")
+    prompt = _prompt(1, 4, cfg.vocab)
+    eng.add_request(0, prompt)
+    for s in range(2):
+        eng.active[s] = True
+        eng.generated[s] = [int(prompt[-1])]
+    for _ in range(6):
+        nxt = eng.step()
+    assert nxt.shape == (2,)
+    assert len(eng.generated[0]) == 7
+    assert all(0 <= t < cfg.vocab for t in eng.generated[0])
+    assert all(0 <= t < cfg.vocab for t in eng.generated[1])
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_a_trainable_model_serves_without_a_graph(paged):
+    """Serving runs under ``torch.no_grad()`` itself: a model in the
+    training layout, served with grad mode on, builds no graph, so the
+    paged path's kernel guard (which refuses operands that require grad)
+    never fires; the tokens equal its serving copy's up to the stored
+    dtype, which is fp32 for both here."""
+    from repro_torch.lm.paging import PagedConfig
+
+    cfg = dataclasses.replace(registry.get("llama3.2-3b").smoke(),
+                              activ_dtype=torch.float32)
+    model = T.init(cfg, 0, "cpu", trainable=True)
+    served = T.serving_copy(model)
+    out = []
+    for m in (model, served):
+        eng = ServeEngine(cfg, m, 2, 32, device="cpu",
+                          paged=PagedConfig(block_size=4, prefill_chunk=4)
+                          if paged else None)
+        with torch.enable_grad():
+            eng.add_request(0, _prompt(5, 7))
+            eng.add_request(1, _prompt(6, 3))
+            for _ in range(4):
+                eng.step()
+        assert not eng.last_logits.requires_grad
+        out.append(eng.generated)
+    assert out[0] == out[1]
