@@ -187,7 +187,19 @@ port from the checkout's sources (into ``build/kernels/``), then:
      parameters after 3 steps of each spec's recipe; (d) int8 gradient
      compression with error feedback on 8 logical data shards, the
      reference test's least squares, exact and int8, 400 steps each;
- 32. prints one JSON line describing every kernel, the card line, and as
+ 32. distribution and modelling at Llama 3.2 3B's full width (random bf16
+     weights drawn on the card): (a) its 28 blocks as 4 stages of 7
+     on a ``pipe`` axis of 4 logical stages on the card, 8 microbatches of
+     2 x 512 tokens through ``pipeline_apply`` (embedding and head outside),
+     bitwise equal to ``sequential_apply``; walls, the bubble fraction, the
+     ``ppermute`` count and peak memory; (b) the roofline bound of three LM
+     steps (``costmodel.step_cost`` priced by ``roofline_terms`` at one
+     card: prefill of 1 x 4096 tokens, a contiguous decode step at 32 slots
+     of 560, a train step of 8 x 128 tokens in the training layout) beside
+     each step's device time and host wall; a device time below its bound
+     fails; ``compat.cost_analysis``'s FLOPs of the prefill beside
+     ``costmodel.forward_flops``.  No kernel launches here;
+ 33. prints one JSON line describing every kernel, the card line, and as
      the last line ``{"ok": true, "device": {...}}``.
 
 A failed phase raises, and the script exits nonzero.  Without a CUDA device,
@@ -4253,6 +4265,257 @@ def phase_lm_train(torch, dev, fd, card) -> dict:
             "launches": llama["launches"]}
 
 
+DIST_STAGES, DIST_MICRO, DIST_MB, DIST_SEQ = 4, 8, 2, 512
+BOUND_PREFILL_SEQ = 4096
+
+
+def drawn(torch, cfg, dev, seed=0):
+    """The model in the serving layout with random weights drawn by a
+    generator on ``dev``: on the card in about a second, where a CPU
+    generator takes tens of seconds for Llama 3.2 3B's 3.6e9 normals."""
+    from repro_torch.nn import transformer as T
+
+    t0 = time.perf_counter()
+    model = T.init(cfg, seed, device=dev)
+    sync(torch, dev)
+    return model, time.perf_counter() - t0
+
+
+def training_layout(model):
+    """``model`` (serving layout) cast to the training layout on its
+    device: every leaf an fp32 trainable master."""
+    from repro_torch.nn import transformer as T
+
+    t = model.tree()
+
+    def cast(tree, path=()):
+        return T.cast_tree(model.cfg, tree, path, trainable=True)
+
+    return T.LM(model.cfg, cast(t["embed"], ("embed",)),
+                [cast(b) for b in t["blocks"]],
+                cast(t["final_ln"], ("final_ln",)),
+                cast(t["lm_head"], ("lm_head",)), None, trainable=True)
+
+
+def wall_ms(torch, dev, fn) -> float:
+    """One call of ``fn`` on the host's clock, ended by a sync."""
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    fn()
+    sync(torch, dev)
+    return (time.perf_counter() - t0) * 1e3
+
+
+def event_ms(torch, fn) -> float:
+    """The stream's time between two CUDA events around one call of
+    ``fn``: the card's time for it, the gaps where it waits on the host
+    included."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop)
+
+
+def pipeline_full(torch, dev, cfg, model) -> dict:
+    """Phase 32a: Llama's blocks as DIST_STAGES stages on a ``pipe`` mesh
+    of logical stages on ``dev``, against ``sequential_apply``."""
+    from repro_torch.distributed import pipeline as pp
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.nn import transformer as T
+
+    per = cfg.n_layers // DIST_STAGES
+    stages = [list(range(i * per, (i + 1) * per)) for i in range(DIST_STAGES)]
+    positions = torch.arange(DIST_SEQ, device=dev)[None].expand(DIST_MB,
+                                                                 DIST_SEQ)
+
+    def layer_fn(layers, x):
+        for i in layers:
+            x, _ = T._apply_block(model.blocks[i], cfg.kind(i), cfg, x,
+                                  positions, None)
+        return x
+
+    gen = torch.Generator().manual_seed(32)
+    tokens = torch.randint(0, cfg.vocab, (DIST_MICRO, DIST_MB, DIST_SEQ),
+                           generator=gen).to(dev)
+    mesh = Mesh([dev] * DIST_STAGES, axes=("pipe",))
+    with torch.no_grad():
+        xs = torch.stack([T._embed(model, cfg, t) for t in tokens])
+        pp.sequential_apply(layer_fn, stages, xs[:1])  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out, walls = {}, {"seq": [], "pipe": []}
+        runs = {"seq": lambda: pp.sequential_apply(layer_fn, stages, xs),
+                "pipe": lambda: pp.pipeline_apply(layer_fn, stages, xs,
+                                                  mesh=mesh)}
+        for name in ("seq", "pipe", "pipe", "seq"):  # in turns: host noise
+            walls[name].append(wall_ms(torch, dev, lambda: out.__setitem__(
+                name, runs[name]())))
+        seq_ms, pipe_ms = min(walls["seq"]), min(walls["pipe"])
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        logits_p = T._logits(model, cfg, out["pipe"][0])
+        logits_s = T._logits(model, cfg, out["seq"][0])
+    if not torch.equal(out["pipe"], out["seq"]) or not torch.equal(
+            logits_p, logits_s):
+        diff = float((out["pipe"].float() - out["seq"].float()).abs().max())
+        raise AssertionError(f"phase 32a: the pipeline differs from "
+                             f"sequential_apply by {diff}")
+    if not bool(torch.isfinite(logits_p).all()):
+        raise AssertionError("phase 32a: non-finite logits")
+    bubble = pp.bubble_fraction(DIST_STAGES, DIST_MICRO)
+    want = 2 * (DIST_MICRO + DIST_STAGES - 2)  # two pipelined runs
+    if mesh.transfers["pipe"] != want:
+        raise AssertionError(f"phase 32a: {mesh.transfers['pipe']} ppermutes,"
+                             f" the schedule has {want}")
+    ratio = pipe_ms / seq_ms
+    if ratio > (DIST_MICRO + DIST_STAGES - 1) / DIST_MICRO:
+        raise AssertionError(f"phase 32a: the pipeline took {ratio:.3f}x the "
+                             f"sequential wall, above (M + P - 1) / M")
+    print(f"phase 32a: Llama 3.2 3B's {cfg.n_layers} blocks as "
+          f"{DIST_STAGES} stages of {per} on a pipe axis of {DIST_STAGES} "
+          f"logical stages on one card, {DIST_MICRO} microbatches of "
+          f"{DIST_MB} x {DIST_SEQ} tokens: bitwise equal to sequential_apply "
+          f"(block outputs and logits); wall {pipe_ms:.2f} ms pipelined, "
+          f"{seq_ms:.2f} ms sequential, the lower of two in turns ("
+          f"{' / '.join(f'{w:.2f}' for w in walls['pipe'])} and "
+          f"{' / '.join(f'{w:.2f}' for w in walls['seq'])}; {ratio:.4f}x; "
+          f"bound (M + P - 1) / M "
+          f"= {(DIST_MICRO + DIST_STAGES - 1) / DIST_MICRO:.4f}); bubble "
+          f"fraction {bubble:.6f} = 3/11; {mesh.transfers['pipe'] // 2} "
+          f"ppermutes a run;"
+          f" peak {peak_gb:.3f} GB above the weights and inputs", flush=True)
+    return {"pipe_ms": pipe_ms, "seq_ms": seq_ms, "ratio": ratio,
+            "bubble": bubble, "ppermutes": mesh.transfers["pipe"] // 2,
+            "peak_gb": peak_gb}
+
+
+def roofline_line(torch, what, cost, device_ms, host_ms, how) -> dict:
+    from repro_torch.launch import roofline as R
+
+    t = R.roofline_terms(cost.flops, cost.hbm_bytes, 0.0, 1)
+    bound_ms = max(t["compute_s"], t["memory_s"]) * 1e3
+    ratio = device_ms / bound_ms
+    print(f"phase 32b: {what}: {cost.flops:.4g} FLOP, {cost.hbm_bytes:.4g} "
+          f"HBM bytes -> bound {bound_ms:.3f} ms ({t['bottleneck']}; compute "
+          f"{t['compute_s'] * 1e3:.3f}, memory {t['memory_s'] * 1e3:.3f}); "
+          f"device {device_ms:.3f} ms ({how}), host wall {host_ms:.3f} ms; "
+          f"device / bound {ratio:.3f}", flush=True)
+    if device_ms < bound_ms:
+        raise AssertionError(f"phase 32b: {what} took {device_ms:.3f} ms of "
+                             f"device time, below its bound {bound_ms:.3f} "
+                             "ms: the cost model under-counts")
+    return {"flops": cost.flops, "hbm_bytes": cost.hbm_bytes,
+            "bound_ms": bound_ms, "bound_by": t["bottleneck"],
+            "device_ms": device_ms, "host_ms": host_ms, "ratio": ratio}
+
+
+def lm_bounds(torch, dev, cfg, model, card) -> tuple:
+    """Phase 32b: the roofline bounds of Llama's prefill, decode and train
+    steps against the steps on the card.  Returns (figures, the model
+    in the training layout; the serving model is dropped)."""
+    import gc
+
+    from repro_torch.compat import cost_analysis
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch import costmodel as CM
+    from repro_torch.launch import train as TR
+    from repro_torch.nn import transformer as T
+
+    n_params = T.count_params_cfg(cfg)[0]
+    out = {}
+    gen = torch.Generator().manual_seed(33)
+    prompt = torch.randint(0, cfg.vocab, (1, BOUND_PREFILL_SEQ),
+                           generator=gen).to(dev)
+    with torch.no_grad():
+        def prefill():
+            return T.forward(model, cfg, prompt)[0]
+
+        logits = prefill()
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("phase 32b: non-finite prefill logits")
+        del logits
+        host = wall_ms(torch, dev, prefill)
+        dev_ms = graph_ms(prefill, iters=1, replays=3)
+        out["prefill"] = roofline_line(
+            torch, f"prefill 1 x {BOUND_PREFILL_SEQ}", CM.step_cost(
+                cfg, n_params, "prefill", 1, BOUND_PREFILL_SEQ,
+                param_bytes=2), dev_ms, host, "CUDA-graph replay")
+        counted = cost_analysis(prefill)["flops"]
+        analytic = CM.forward_flops(cfg, 1, BOUND_PREFILL_SEQ)
+        out["prefill"].update(counted_flops=counted, analytic_flops=analytic)
+        print(f"phase 32b: compat.cost_analysis of that prefill on the card "
+              f"counts {counted:.6g} FLOP against costmodel.forward_flops "
+              f"{analytic:.6g} ({counted / analytic:.4f}x: flash attention "
+              f"computes the causal blocks in full)", flush=True)
+
+        cache = T.init_cache(cfg, LM_SLOTS, LM_MAX_LEN, device=dev)
+        for per in cache:
+            per["self"]["len"].fill_(LM_MAX_LEN - 64)
+        step_tok = torch.randint(0, cfg.vocab, (LM_SLOTS, 1),
+                                 generator=gen).to(dev)
+
+        def decode():
+            return T.decode_step(model, cfg, cache, step_tok)[0]
+
+        host = wall_ms(torch, dev, decode)
+        dev_ms = graph_ms(decode, iters=1, replays=5)
+        out["decode"] = roofline_line(
+            torch, f"decode step at {LM_SLOTS} slots of {LM_MAX_LEN}",
+            CM.step_cost(cfg, n_params, "decode", LM_SLOTS, LM_MAX_LEN,
+                         param_bytes=2), dev_ms, host, "CUDA-graph replay")
+        del cache
+    trainable = training_layout(model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _, step = TR.build_train_step(trainable, ARCHS[LLAMA], LLAMA_TRAIN_STEPS)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (LM_TRAIN_BATCH,
+                                                    LM_TRAIN_SEQ),
+                                     generator=gen).to(dev)}
+    for _ in range(2):  # warm-up: the optimizer's first steps
+        step(None, batch)
+    host = wall_ms(torch, dev, lambda: step(None, batch))
+    dev_ms = min(event_ms(torch, lambda: step(None, batch)) for _ in range(3))
+    out["train"] = roofline_line(
+        torch, f"train step {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}",
+        CM.step_cost(cfg, n_params, "train", LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                     param_bytes=4), dev_ms, host,
+        "CUDA events, the best of 3; the card's waits on the host included")
+    out["train"]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out, trainable
+
+
+def kernel_launches(rs, sim, fd, cc) -> tuple:
+    """Every kernel wrapper's launch count in this process."""
+    return (rs.launches, rs.masked_launches, rs.local_launches, sim.launches,
+            fd.launches, cc.rows_launches, cc.single_launches)
+
+
+def phase_dist(torch, dev, card) -> dict:
+    """Phase 32: the pipeline at Llama 3.2 3B's full width, and the LM
+    steps' roofline bounds against the card."""
+    import gc
+
+    from repro_torch.configs.registry import ARCHS
+
+    cfg = ARCHS[LLAMA].full()
+    t0 = time.perf_counter()
+    model, drawn_s = drawn(torch, cfg, dev)
+    print(f"phase 32: Llama 3.2 3B's random bf16 weights drawn on {card} in "
+          f"{drawn_s:.1f} s", flush=True)
+    out = {"pipeline": pipeline_full(torch, dev, cfg, model)}
+    bounds, trainable = lm_bounds(torch, dev, cfg, model, card)
+    del model, trainable
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(bounds=bounds, seconds=time.perf_counter() - t0)
+    print(f"phase 32: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4318,6 +4581,11 @@ def main() -> int:
                                    g=2, rep=12, dh=128, kvs=("bf16",),
                                    phase=30, gate=False)["bf16"]}
     lm_train = phase_lm_train(torch, dev, fd, card)
+    launched = kernel_launches(rs, sim, fd, cc)
+    phase_dist(torch, dev, card)
+    if kernel_launches(rs, sim, fd, cc) != launched:
+        raise AssertionError("phase 32 launched a kernel: its pipeline and "
+                             "steps reach no pallas_call in the reference")
 
     src = "src/repro_torch/kernels/resonator_step/csrc/resonator_step.cu"
     kernels = [

@@ -35,6 +35,10 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.nn.common import (current_mesh, is_dtensor, local_map,
+                                   merge_heads, rows_local, shard,
+                                   split_heads)
+
 _NEG = -1e30  # the reference's mask sentinel
 
 
@@ -66,9 +70,17 @@ def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (xf * torch.rsqrt(var + eps) * p["scale"]).to(x.dtype)
 
 
+def rmsnorm_logical() -> dict:
+    return {"scale": ("embed_act",)}
+
+
 def init_layernorm(d: int, device=None):
     return {"scale": torch.ones((d,), dtype=torch.float32, device=device),
             "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+def layernorm_logical() -> dict:
+    return {"scale": ("embed_act",), "bias": ("embed_act",)}
 
 
 def layernorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -142,6 +154,14 @@ def _dense_init(draw, d_in: int, d_out: int, bias: bool = False,
     return p
 
 
+def _dense_logical(logical: tuple, bias: bool = False) -> dict:
+    """The logical axes of :func:`_dense_init`'s leaves, the reference's."""
+    lg = {"w": logical}
+    if bias:
+        lg["b"] = (logical[-1],)
+    return lg
+
+
 def dense(p, x: torch.Tensor) -> torch.Tensor:
     y = x @ p["w"].to(x.dtype)
     if "b" in p:
@@ -182,14 +202,21 @@ def init_attention(draw, cfg: AttnConfig):
     }
 
 
+def attention_logical(cfg: AttnConfig) -> dict:
+    return {"q": _dense_logical(("embed", "heads"), cfg.qkv_bias),
+            "k": _dense_logical(("embed", "kv_heads"), cfg.qkv_bias),
+            "v": _dense_logical(("embed", "kv_heads"), cfg.qkv_bias),
+            "o": _dense_logical(("heads", "embed"))}
+
+
 def _qkv(p, x: torch.Tensor, cfg: AttnConfig, positions) -> tuple:
     """q [B, S, H, dh], k/v [B, S, G, dh], rotated by RoPE at ``positions``
     [B, S] (none when None) or by M-RoPE at ``positions`` [B, 3, S]."""
     B, S, _ = x.shape
     dh = cfg.dh
-    q = dense(p["q"], x).reshape(B, S, cfg.n_heads, dh)
-    k = dense(p["k"], x).reshape(B, S, cfg.n_kv_heads, dh)
-    v = dense(p["v"], x).reshape(B, S, cfg.n_kv_heads, dh)
+    q = split_heads(dense(p["q"], x), cfg.n_heads, dh)
+    k = split_heads(dense(p["k"], x), cfg.n_kv_heads, dh)
+    v = split_heads(dense(p["v"], x), cfg.n_kv_heads, dh)
     if cfg.mrope_sections is not None:
         if positions is None:
             raise ValueError("M-RoPE needs explicit positions [B, 3, S]")
@@ -198,6 +225,9 @@ def _qkv(p, x: torch.Tensor, cfg: AttnConfig, positions) -> tuple:
     elif positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    # Only the q heads get an explicit constraint; k/v inherit the weight
+    # sharding (forcing n_kv < mesh axis size causes involuntary resharding).
+    q = shard(q, "batch", "seq", "heads", None)
     return q, k, v
 
 
@@ -236,6 +266,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             kj = torch.nn.functional.pad(kj, (0, 0, 0, 0, 0, block - n))
             vj = torch.nn.functional.pad(vj, (0, 0, 0, 0, 0, block - n))
         s = torch.einsum("bqhd,bkhd->bqhk", qf, kj)
+        s = shard(s, "batch", "seq", "heads", None)
         kv_pos = j0 + torch.arange(block, device=dev)
         valid = (kv_pos < Sk)[None, :]
         if causal:
@@ -258,14 +289,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(q.dtype)
 
 
+def sharded_flash_attention(q, k, v, **kw) -> torch.Tensor:
+    """:func:`flash_attention`, run on each rank's rows under a mesh
+    (:func:`repro_torch.nn.common.rows_local`; the heads gathered).  GSPMD
+    partitions the reference's blockwise loop over batch and heads; DTensor
+    cannot propagate through the loop's products once batch and heads are
+    both split, so the port splits the rows only."""
+    return rows_local(lambda q, k, v: flash_attention(q, k, v, **kw),
+                      (q, k, v))
+
+
 def attention(p, x: torch.Tensor, cfg: AttnConfig,
               positions=None) -> torch.Tensor:
     """Full-sequence (train / prefill / encoder) attention. x: [B, S, d]."""
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions)
-    out = flash_attention(q, k, v, causal=cfg.causal,
-                          block=min(cfg.flash_block, S))
-    return dense(p["o"], out.reshape(B, S, cfg.n_heads * cfg.dh))
+    out = sharded_flash_attention(q, k, v, causal=cfg.causal,
+                                  block=min(cfg.flash_block, S))
+    return shard(dense(p["o"], merge_heads(out)), "batch", "seq", "embed_act")
 
 
 def _quant_kv(t: torch.Tensor) -> tuple:
@@ -319,6 +360,10 @@ def attention_decode(p, x: torch.Tensor, cache: dict, cfg: AttnConfig,
     """
     B = x.shape[0]
     q, k_new, v_new = _qkv(p, x, cfg, positions)
+    if current_mesh() is not None and is_dtensor(cache["k"]):
+        out = _decode_sharded(q, k_new, v_new, cache, cfg, active)
+        cache["len"].add_(1 if active is None else active.to(torch.int32))
+        return shard(dense(p["o"], out), "batch", None, "embed_act"), cache
     Smax = cache["k"].shape[1]
     pos = cache["len"].long()
     rows = torch.arange(B, device=x.device)
@@ -355,7 +400,96 @@ def attention_decode(p, x: torch.Tensor, cache: dict, cfg: AttnConfig,
             cache[name].index_put_(at, torch.where(keep, cache[name][at],
                                                    saved[name]))
         cache["len"].add_(active.to(torch.int32))
-    return dense(p["o"], out), cache
+    return shard(dense(p["o"], out), "batch", None, "embed_act"), cache
+
+
+def _decode_sharded(q, k_new, v_new, cache: dict, cfg: AttnConfig,
+                    active) -> torch.Tensor:
+    """:func:`attention_decode`'s cache write and attention under a mesh,
+    on a cache split over rows and sequence (the dry-run's decode cells).
+
+    Each rank writes the new KV where its span of the sequence holds the
+    row's position and attends over its span; the partial softmax is
+    combined across the sequence's mesh axes (the max, then the sums), as
+    flash decoding does.  GSPMD partitions the reference's dense softmax
+    over a sharded sequence so; DTensor has no in-place write to a sharded
+    tensor.  The same numbers as the one-device path up to the order of
+    the softmax's sums.  Returns the attention output [B, 1, H * dh]."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import Shard
+
+    kc = cache["k"]
+    mesh = kc.device_mesh
+    names = mesh.mesh_dim_names
+
+    def dims(d):
+        return [i for i, pl in enumerate(kc.placements)
+                if isinstance(pl, Shard) and pl.dim == d]
+
+    def entry(ds):
+        return (tuple(names[i] for i in ds) if len(ds) > 1
+                else (names[ds[0]] if ds else None))
+
+    row_dims, seq_dims = dims(0), dims(1)
+    rows, seq = entry(row_dims), entry(seq_dims)
+    leaf_names = [n for n in ("k", "v", "k_scale", "v_scale") if n in cache]
+    Smax, H, dh = kc.shape[1], cfg.n_heads, cfg.dh
+    pos = cache["len"].long()
+    act = pos >= 0 if active is None else active
+
+    def combine(t, op):
+        for i in seq_dims:
+            t = funcol.all_reduce(t, op, (mesh, i))
+        return t
+
+    def local(q, k_new, v_new, pos, act, *leaves):
+        c = dict(zip(leaf_names, leaves))
+        Bl, S_loc = q.shape[0], c["k"].shape[1]
+        off = 0
+        for i in seq_dims:
+            off = off * mesh.size(i) + mesh.get_local_rank(i)
+        off *= S_loc
+        idx = pos - off
+        fits = (pos < Smax) & (idx >= 0) & (idx < S_loc)
+        at = (torch.arange(Bl, device=q.device), torch.clamp(idx, 0, S_loc - 1))
+        if c["k"].dtype == torch.int8:
+            kq, ks = _quant_kv(k_new[:, 0])
+            vq, vs = _quant_kv(v_new[:, 0])
+            new = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+        else:
+            new = {"k": k_new[:, 0], "v": v_new[:, 0]}
+        saved = {}
+        for name, val in new.items():
+            saved[name] = c[name][at]
+            c[name].index_put_(at, torch.where(
+                fits[:, None, None], val.to(c[name].dtype), saved[name]))
+        k, v = c["k"].float(), c["v"].float()
+        if "k_scale" in c:
+            k, v = k * c["k_scale"], v * c["v_scale"]
+        G = k.shape[2]
+        qf = (q.float() * dh ** -0.5).reshape(Bl, 1, G, H // G, dh)
+        valid = ((off + torch.arange(S_loc, device=q.device))[None, :]
+                 <= pos[:, None])[:, None, None, None, :]
+        s = torch.einsum("bqgrd,bkgd->bqgrk", qf, k)
+        s = torch.where(valid, s, torch.full((), _NEG, device=q.device))
+        m = combine(s.amax(-1), "max")
+        e = torch.where(valid, torch.exp(s - m[..., None]),
+                        torch.zeros((), device=q.device))
+        l = combine(e.sum(-1), "sum")
+        acc = combine(torch.einsum("bqgrk,bkgd->bqgrd", e, v), "sum")
+        out = (acc / l[..., None]).reshape(Bl, 1, H * dh).to(q.dtype)
+        if active is not None:
+            keep = (act & fits)[:, None, None]
+            for name in new:
+                c[name].index_put_(at, torch.where(keep, c[name][at],
+                                                   saved[name]))
+        return out
+
+    tok, vec, cspec = (rows, None, None, None), (rows,), (rows, seq, None, None)
+    return local_map(local, (q, k_new, v_new, pos, act,
+                             *[cache[n] for n in leaf_names]),
+                     [tok, tok, tok, vec, vec] + [cspec] * len(leaf_names),
+                     [(rows, None, None)])
 
 
 # ---------------------------------------------------------------------------
@@ -428,7 +562,7 @@ def attention_decode_paged(p, x: torch.Tensor, pool: dict, cfg: AttnConfig,
     qf = (q.float() * cfg.dh ** -0.5).reshape(B, G, rep, cfg.dh)
     out = _fd.flash_decode(qf, pool, table, kv_lens + 1, use_flash=use_flash)
     out = out.reshape(B, 1, cfg.n_heads * cfg.dh).to(x.dtype)
-    return dense(p["o"], out), pool
+    return shard(dense(p["o"], out), "batch", None, "embed_act"), pool
 
 
 def attention_prefill_paged(p, x: torch.Tensor, pool: dict, cfg: AttnConfig,
@@ -468,7 +602,7 @@ def attention_prefill_paged(p, x: torch.Tensor, pool: dict, cfg: AttnConfig,
     out = _dense_softmax_out(qf, k, v, valid[None, :, None, None, :],
                              "bcgrd,kgd->bcgrk", "bcgrk,kgd->bcgrd")
     out = out.reshape(1, C, cfg.n_heads * cfg.dh).to(x.dtype)
-    return dense(p["o"], out), pool
+    return shard(dense(p["o"], out), "batch", "seq", "embed_act"), pool
 
 
 # ---------------------------------------------------------------------------
@@ -481,6 +615,12 @@ def init_swiglu(draw, d_model: int, d_ff: int):
             "down": _dense_init(draw, d_ff, d_model)}
 
 
+def swiglu_logical() -> dict:
+    return {"gate": _dense_logical(("embed", "mlp")),
+            "up": _dense_logical(("embed", "mlp")),
+            "down": _dense_logical(("mlp", "embed"))}
+
+
 def _silu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.silu`` as the reference's JAX computes it:
     ``x * (1 / (1 + exp(-x)))``, every step rounded to ``x``'s dtype (in
@@ -491,12 +631,18 @@ def _silu(x: torch.Tensor) -> torch.Tensor:
 
 def swiglu(p, x: torch.Tensor) -> torch.Tensor:
     h = _silu(dense(p["gate"], x)) * dense(p["up"], x)
-    return dense(p["down"], h)
+    h = shard(h, "batch", "seq", "mlp")
+    return shard(dense(p["down"], h), "batch", "seq", "embed_act")
 
 
 def init_gelu_mlp(draw, d_model: int, d_ff: int, bias: bool = True):
     return {"up": _dense_init(draw, d_model, d_ff, bias),
             "down": _dense_init(draw, d_ff, d_model, bias)}
+
+
+def gelu_mlp_logical(bias: bool = True) -> dict:
+    return {"up": _dense_logical(("embed", "mlp"), bias),
+            "down": _dense_logical(("mlp", "embed"), bias)}
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -511,4 +657,5 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
-    return dense(p["down"], _gelu(dense(p["up"], x)))
+    h = shard(_gelu(dense(p["up"], x)), "batch", "seq", "mlp")
+    return shard(dense(p["down"], h), "batch", "seq", "embed_act")

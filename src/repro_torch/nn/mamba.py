@@ -21,6 +21,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.nn import layers as L
+from repro_torch.nn.common import rows_local, shard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,9 +69,26 @@ def init_mamba(draw, cfg: MambaConfig) -> dict:
     }
 
 
+def mamba_logical() -> dict:
+    """The reference's logical axes of :func:`init_mamba`'s leaves."""
+    return {
+        "in_proj": ("embed", "mlp"), "conv_w": ("conv", "mlp"),
+        "conv_b": ("mlp",), "x_proj": ("mlp", "state"),
+        "dt_proj_w": ("state", "mlp"), "dt_proj_b": ("mlp",),
+        "A_log": ("mlp", "state"), "D": ("mlp",), "out_proj": ("mlp", "embed"),
+    }
+
+
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus`` = ``logaddexp(x, 0)``, each step in x's dtype."""
     return torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+# The leaves the scan's inputs read.  Under a mesh the scan runs on each
+# rank's rows with these gathered (``rows_local``): DTensor's propagation
+# through the scan's inputs asks for redistributions it does not support
+# (torch 2.11: Shard to Partial).
+_SSM = ("x_proj", "dt_proj_w", "dt_proj_b", "A_log")
 
 
 def _ssm_inputs(p, x: torch.Tensor, cfg: MambaConfig) -> tuple:
@@ -136,6 +154,7 @@ def mamba(p, x: torch.Tensor, cfg: MambaConfig, state: dict | None = None
     di, N = cfg.d_inner, cfg.d_state
     xz = x @ p["in_proj"].to(x.dtype)
     xin, z = torch.chunk(xz, 2, dim=-1)  # [B, S, di]
+    xin = shard(xin, "batch", "seq", "mlp")
     if state is None:
         pad = torch.zeros((B, cfg.d_conv - 1, di), dtype=xin.dtype,
                           device=x.device)
@@ -148,8 +167,15 @@ def mamba(p, x: torch.Tensor, cfg: MambaConfig, state: dict | None = None
             u = torch.nn.functional.pad(u, (0, 0, 0, pad_s))
         h = torch.zeros((B, di, N), dtype=torch.float32, device=x.device)
 
+        def local_chunk(h, u_chunk, *ws):
+            return _chunk_scan(h, *_ssm_inputs(dict(zip(_SSM, ws)), u_chunk,
+                                               cfg))
+
         def chunk_body(h, u_chunk):
-            return _chunk_scan(h, *_ssm_inputs(p, u_chunk, cfg))
+            # the chunk on each rank's rows under a mesh, its weights
+            # gathered (_SSM)
+            return rows_local(local_chunk, (h, u_chunk),
+                              shared=tuple(p[n] for n in _SSM), n_out=2)
 
         # under autograd each chunk is checkpointed, as the reference's
         # scan body is: its [B, chunk, di, N] elements are rebuilt in the
@@ -171,13 +197,19 @@ def mamba(p, x: torch.Tensor, cfg: MambaConfig, state: dict | None = None
         conv = sum(conv_buf[:, i] * p["conv_w"][i].to(x.dtype)
                    for i in range(cfg.d_conv)) + p["conv_b"].to(x.dtype)
         u = L._silu(conv)[:, None, :]  # [B, 1, di]
-        dA, dBx, Cm = _ssm_inputs(p, u, cfg)
-        h = dA[:, 0] * state["ssm"] + dBx[:, 0]  # [B, di, N]
-        y = torch.einsum("bdn,bn->bd", h, Cm[:, 0].float())[:, None]
+
+        def local_step(u, ssm, *ws):
+            dA, dBx, Cm = _ssm_inputs(dict(zip(_SSM, ws)), u, cfg)
+            h = dA[:, 0] * ssm + dBx[:, 0]  # [B, di, N]
+            y = torch.einsum("bdn,bn->bd", h, Cm[:, 0].float())[:, None]
+            return y, h
+
+        y, h = rows_local(local_step, (u, state["ssm"]),
+                          shared=tuple(p[n] for n in _SSM), n_out=2)
         y = y.to(x.dtype) + u * p["D"].to(x.dtype)
         new_state = {"conv": conv_buf[:, 1:], "ssm": h}
     out = (y * L._silu(z)) @ p["out_proj"].to(x.dtype)
-    return out, new_state
+    return shard(out, "batch", "seq", "embed_act"), new_state
 
 
 def init_mamba_state(batch: int, cfg: MambaConfig, dtype=torch.bfloat16,

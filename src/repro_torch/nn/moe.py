@@ -5,10 +5,13 @@ top-4 and jamba 16 top-2 run through it).  A dropping MoE: the token ->
 expert assignments are sorted by expert, each expert takes a fixed capacity
 of them, and overflow assignments fall back to the residual path.
 
-Routing is per batch row, as the reference routes it with no mesh; at decode
-(S == 1, B > 1) the B rows are folded into ONE routing group, so capacity is
-sized for B * K assignments and the rows compete for it (inactive slots'
-tokens too: the reference's behaviour, kept).
+Routing is per batch row; at decode (S == 1, B > 1) the rows of each data
+shard are folded into ONE routing group (all B rows with no mesh), so
+capacity is sized for B * K assignments and the rows compete for it
+(inactive slots' tokens too: the reference's behaviour, kept).  Under a
+sharding context the routing and the combine run on each batch shard's
+local rows (``rows_local``, the reference's ``shard_map`` over the batch
+axes), and only the expert products stay under DTensor's propagation.
 
 Where the numbers come from, step by step as the reference's:
 
@@ -26,10 +29,13 @@ Where the numbers come from, step by step as the reference's:
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
 from repro_torch.nn import layers as L
+from repro_torch.nn.common import (current_mesh, local_map, mesh_axes,
+                                   rows_local, sanitize, shard, spec_for)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +56,13 @@ def init_moe(draw, cfg: MoEConfig) -> dict:
     s_in, s_out = (1.0 / d) ** 0.5, (1.0 / f) ** 0.5
     return {"router": draw((d, E), s_in), "gate": draw((E, d, f), s_in),
             "up": draw((E, d, f), s_in), "down": draw((E, f, d), s_out)}
+
+
+def moe_logical() -> dict:
+    """The reference's logical axes of :func:`init_moe`'s leaves."""
+    return {"router": ("embed", "experts"), "gate": ("experts", "embed", "mlp"),
+            "up": ("experts", "embed", "mlp"),
+            "down": ("experts", "mlp", "embed")}
 
 
 def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -128,6 +141,35 @@ def _combine_local(out, slot, sw, keep, order, *, S: int, K: int,
     return y.reshape(B * fold, S, d) if fold > 1 else y
 
 
+def _batch_axes(mesh, rules) -> tuple:
+    b_rule = rules.get("batch")
+    return tuple(a for a in ((b_rule,) if isinstance(b_rule, str)
+                             else (b_rule or ())) if a in mesh_axes(mesh))
+
+
+def _expert_hidden(disp, gate, up):
+    return L._silu(torch.einsum("becd,edf->becf", disp, gate)) \
+        * torch.einsum("becd,edf->becf", disp, up)
+
+
+def _expert_map(fn, x, *ws):
+    """``fn(x, *ws)``, the experts' products, on each rank's rows and
+    experts under a mesh: ``x [B, E, cap, .]`` split by rows over the batch
+    axes and by experts over the experts axes, the weights ``[E, ...]`` by
+    experts (expert parallelism as the reference's rules place it; the
+    weights' FSDP split gathered).  Plainly otherwise.  DTensor's own
+    propagation through the batched products cannot view its local
+    gradients once rows and experts are both split."""
+    v = current_mesh()
+    if v is None:
+        return fn(x, *ws)
+    mesh, rules = v
+    rows, ex = sanitize(spec_for(("batch", "experts"), mesh, rules),
+                        x.shape[:2], mesh)
+    return local_map(fn, (x, *ws), [(rows, ex)] + [(ex,)] * len(ws),
+                     [(rows, ex)])
+
+
 def moe(p, x: torch.Tensor, cfg: MoEConfig) -> tuple:
     """x: [B, S, d] -> (y [B, S, d], aux dict: ``load_balance``,
     ``router_z``, ``dropped_frac``, fp32 scalars).  Capacity per routing
@@ -135,18 +177,43 @@ def moe(p, x: torch.Tensor, cfg: MoEConfig) -> tuple:
     B, S, d = x.shape
     E, K = cfg.num_experts, cfg.top_k
     logits = (x @ p["router"].to(x.dtype)).float()  # [B, S, E]
-    probs = softmax(logits)
-    top_p, top_e = top_k(probs, K)
-    top_p = top_p / (top_p.sum(-1, keepdim=True) + 1e-9)
-    fold = B if (S == 1 and B > 1) else 1
+
+    def route_probs(logits):
+        probs = softmax(logits)
+        top_p, top_e = top_k(probs, K)
+        return probs, top_p / (top_p.sum(-1, keepdim=True) + 1e-9), top_e
+
+    # Routing, dispatch and combine run on each data shard's rows under a
+    # mesh (the reference's shard_map over the batch axes): DTensor cannot
+    # partition the sorts, gathers and scatters of token routing and would
+    # replicate them.  Expert weights never enter these functions.
+    probs, top_p, top_e = rows_local(route_probs, (logits,), n_out=3)
+    # Decode (S == 1): pool each data shard's rows into ONE routing group
+    # so capacity is sized for B_loc * K assignments, not E slots a row.
+    fold = 1
+    if S == 1 and B > 1:
+        v = current_mesh()
+        dp = 1
+        if v is not None:
+            sizes = mesh_axes(v[0])
+            for a in _batch_axes(*v):
+                dp *= sizes[a]
+        if B % dp == 0:
+            fold = B // dp
     cap = int(max(1, round(S * fold * K * cfg.capacity_factor / E)))
-    disp, slot, sw, keep, order = _route_local(x, top_e, top_p, E=E, K=K,
-                                               cap=cap, fold=fold)
-    h = L._silu(torch.einsum("becd,edf->becf", disp, p["gate"].to(x.dtype))) \
-        * torch.einsum("becd,edf->becf", disp, p["up"].to(x.dtype))
-    out = torch.einsum("becf,efd->becd", h, p["down"].to(x.dtype))
-    out = out.reshape(B // fold, E * cap, d)
-    y = _combine_local(out, slot, sw, keep, order, S=S, K=K, fold=fold)
+    disp, slot, sw, keep, order = rows_local(
+        functools.partial(_route_local, E=E, K=K, cap=cap, fold=fold),
+        (x, top_e, top_p), n_out=5)
+    disp = shard(disp, "batch", "experts", None, None)
+    h = _expert_map(_expert_hidden, disp, p["gate"].to(x.dtype),
+                    p["up"].to(x.dtype))
+    h = shard(h, "batch", "experts", None, "mlp")
+    out = _expert_map(functools.partial(torch.einsum, "becf,efd->becd"), h,
+                      p["down"].to(x.dtype))
+    out = shard(out, "batch", "experts", None, None).reshape(
+        B // fold, E * cap, d)
+    y = rows_local(functools.partial(_combine_local, S=S, K=K, fold=fold),
+                   (out, slot, sw, keep, order))
     me = _one_hot(top_e[..., 0], E).float().mean((0, 1))
     ce = probs.mean((0, 1))
     aux = {
@@ -155,4 +222,4 @@ def moe(p, x: torch.Tensor, cfg: MoEConfig) -> tuple:
             torch.square(torch.logsumexp(logits, -1))),
         "dropped_frac": 1.0 - torch.mean(keep.float()),
     }
-    return y, aux
+    return shard(y, "batch", "seq", "embed_act"), aux

@@ -48,6 +48,8 @@ from repro_torch.nn import layers as L
 from repro_torch.nn import mamba as Mb
 from repro_torch.nn import moe as Moe
 from repro_torch.nn import xlstm as Xl
+from repro_torch.nn.common import (current_mesh, merge_heads, shard,
+                                   split_heads)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -274,6 +276,125 @@ def _init_block(draw, kind: str, cfg: ModelConfig) -> dict:
     return p
 
 
+def _norm_logical(cfg: ModelConfig) -> dict:
+    return (L.rmsnorm_logical() if cfg.norm == "rmsnorm"
+            else L.layernorm_logical())
+
+
+def _block_logical(kind: str, cfg: ModelConfig) -> dict:
+    """The reference's logical axes of one block's leaves (unstacked)."""
+    lg = {"ln1": _norm_logical(cfg)}
+    if kind.startswith("attn"):
+        lg["attn"] = L.attention_logical(cfg.attn_cfg())
+        if "cross" in kind:
+            lg["lnx"] = _norm_logical(cfg)
+            lg["xattn"] = L.attention_logical(cfg.xattn_cfg())
+    elif kind.startswith("mamba"):
+        lg["mamba"] = Mb.mamba_logical()
+    elif kind in ("mlstm", "slstm"):
+        lg[kind] = Xl.mlstm_logical() if kind == "mlstm" else Xl.slstm_logical()
+        return lg
+    else:
+        raise ValueError(f"unknown block kind {kind!r}")
+    lg["ln2"] = _norm_logical(cfg)
+    if kind.endswith("moe"):
+        lg["moe"] = Moe.moe_logical()
+    elif cfg.mlp_kind == "swiglu":
+        lg["mlp"] = L.swiglu_logical()
+    else:
+        lg["mlp"] = L.gelu_mlp_logical()
+    return lg
+
+
+def _stacked(tree):
+    """Every logical tuple of ``tree`` with the ``("layers",)`` prefix of a
+    leaf stacked over periods."""
+    if isinstance(tree, dict):
+        return {k: _stacked(v) for k, v in tree.items()}
+    return ("layers",) + tree
+
+
+def param_logical(cfg: ModelConfig) -> dict:
+    """The reference's logical-axes tree (``repro.nn.transformer.init``'s
+    second result): ``embed``, ``lm_head`` (untied), ``final_ln``,
+    ``blocks`` (a list over the pattern's positions, each leaf prefixed by
+    ``"layers"``, the axis the reference stacks periods on) and, with an
+    encoder, ``enc_blocks`` (a one-entry list), ``enc_ln`` and ``enc_pos``.
+    The port keeps one block a layer; :func:`leaf_logical` gives each of
+    its parameters its entry."""
+    lg = {"embed": ("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        lg["lm_head"] = ("embed", "vocab")
+    lg["final_ln"] = _norm_logical(cfg)
+    lg["blocks"] = [_stacked(_block_logical(k, cfg)) for k in cfg.block_pattern]
+    if cfg.encoder is not None:
+        lg["enc_blocks"] = [_stacked(_block_logical("attn_mlp",
+                                                    cfg.encoder_cfg()))]
+        lg["enc_ln"] = _norm_logical(cfg)
+        lg["enc_pos"] = ("seq", "embed_act")
+    return lg
+
+
+def leaf_logical(cfg: ModelConfig) -> dict:
+    """``{parameter name of the LM: logical axes}``: the entry of
+    :func:`param_logical` for each of the port's per-layer leaves, without
+    the ``"layers"`` axis (a port block is one layer, not a stack)."""
+    lg = param_logical(cfg)
+    out = {}
+
+    def walk(prefix: str, tree, strip: bool):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(f"{prefix}.{k}" if prefix else k, v, strip)
+        else:
+            out[prefix] = tree[1:] if strip else tree
+
+    for name in ("embed", "lm_head", "final_ln", "enc_ln", "enc_pos"):
+        if name in lg:
+            walk(name, lg[name], False)
+    for i in range(cfg.n_layers):
+        walk(f"blocks.{i}", lg["blocks"][i % cfg.period], True)
+    if cfg.encoder is not None:
+        for i in range(cfg.encoder.n_layers):
+            walk(f"enc_blocks.{i}", lg["enc_blocks"][0], True)
+    return out
+
+
+def replace_params(model: "LM", make, requires_grad: bool | None = None
+                   ) -> "LM":
+    """Replace every parameter of ``model`` in place by ``make(name, p,
+    logical)`` (its :func:`leaf_logical` entry), requiring grad as
+    ``requires_grad`` says (as before when None)."""
+    logical = leaf_logical(model.cfg)
+    for name, p in list(model.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(owner) if owner else model
+        grad = p.requires_grad if requires_grad is None else requires_grad
+        setattr(mod, leaf, nn.Parameter(make(name, p, logical[name]),
+                                        requires_grad=grad))
+    return model
+
+
+def distribute(model: "LM", mesh, rules: dict | None = None) -> "LM":
+    """Put every parameter of ``model`` onto ``mesh`` (a ``DeviceMesh``) as
+    a DTensor placed by its logical axes (:func:`leaf_logical`, the rules'
+    ``spec_for``, mesh axes that do not divide a dim left out), in place.
+    Every rank calls it with the same values (``distribute_tensor``).  Run
+    the model under ``nn.common.sharding_ctx(mesh, rules)``."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.nn.common import (DEFAULT_RULES, placements, sanitize,
+                                       spec_for)
+
+    rules = rules or DEFAULT_RULES
+
+    def make(name, p, lg):
+        spec = sanitize(spec_for(lg, mesh, rules), p.shape, mesh)
+        return distribute_tensor(p.detach(), mesh, placements(spec, mesh))
+
+    return replace_params(model, make)
+
+
 def cast_tree(cfg: ModelConfig, tree, path: tuple = (),
               trainable: bool = False):
     """``tree`` (a tensor, None, or nested dicts of them at ``path``) with
@@ -352,10 +473,13 @@ def param_count(model: LM) -> int:
     return sum(p.numel() for p in model.parameters())
 
 
-def abstract_init(cfg: ModelConfig) -> LM:
+def abstract_init(cfg: ModelConfig, trainable: bool = False) -> LM:
     """The model's parameters as ``meta`` tensors: every shape and stored
-    dtype, nothing allocated (the 398 B config builds at once)."""
-    return init(cfg, device="meta")
+    dtype, in the serving or the training layout, nothing allocated (the
+    398 B config builds at once).  The reference returns its logical axes
+    with its shapes; here they are :func:`param_logical` (the reference's
+    tree) and :func:`leaf_logical` (per parameter name)."""
+    return init(cfg, device="meta", trainable=trainable)
 
 
 def count_params_cfg(cfg: ModelConfig) -> tuple:
@@ -379,16 +503,30 @@ def count_params_cfg(cfg: ModelConfig) -> tuple:
 # ---------------------------------------------------------------------------
 
 def _norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
-    return L.rmsnorm(p, x) if cfg.norm == "rmsnorm" else L.layernorm(p, x)
+    """The block's norm.  Under a mesh its output is constrained to the
+    ``seq`` rule: the residual's Megatron-SP split of the sequence
+    (``seq_res``) is gathered here, where the tensor-parallel products
+    start, as Megatron-SP does.  DTensor cannot feed a product a tensor
+    split on both batch and sequence (it flattens them), which GSPMD
+    can."""
+    h = L.rmsnorm(p, x) if cfg.norm == "rmsnorm" else L.layernorm(p, x)
+    return shard(h, "batch", "seq", "embed_act")
 
 
 def _embed(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
            vision_embeds=None) -> torch.Tensor:
-    emb = F.embedding(tokens.long(), model.embed).to(cfg.activ_dtype)
+    # the table's FSDP split of `embed` is gathered before the lookup (a
+    # no-op without a mesh): DTensor's vocab-split lookup mis-masks a table
+    # split on both dims
+    table = shard(model.embed, "vocab", "embed_act")
+    emb = F.embedding(tokens.long(), table).to(cfg.activ_dtype)
     if cfg.vision_patches and vision_embeds is not None:
+        # under a mesh the vocab-split lookup is reduced before the concat:
+        # DTensor cannot slice its masked partial sum of fake tensors
+        emb = shard(emb, "batch", "seq", "embed_act")
         P = cfg.vision_patches
         emb = torch.cat([vision_embeds.to(cfg.activ_dtype), emb[:, P:]], 1)
-    return emb
+    return shard(emb, "batch", "seq", "embed_act")
 
 
 def _cross_attention(p, cfg: ModelConfig, x: torch.Tensor,
@@ -397,14 +535,14 @@ def _cross_attention(p, cfg: ModelConfig, x: torch.Tensor,
     the encoder output (recomputed on every call, decode steps included)."""
     h = _norm(cfg, p["lnx"], x)
     xcfg = cfg.xattn_cfg()
-    B, Sq, _ = h.shape
-    q = L.dense(p["xattn"]["q"], h).reshape(B, Sq, cfg.n_heads, xcfg.dh)
-    k = L.dense(p["xattn"]["k"], enc_out).reshape(B, -1, cfg.n_heads,
-                                                  xcfg.dh)
-    v = L.dense(p["xattn"]["v"], enc_out).reshape(B, -1, cfg.n_heads,
-                                                  xcfg.dh)
-    o = L.flash_attention(q, k, v, causal=False, block=512)
-    return x + L.dense(p["xattn"]["o"], o.reshape(B, Sq, -1))
+    q = split_heads(L.dense(p["xattn"]["q"], h), cfg.n_heads, xcfg.dh)
+    k = split_heads(L.dense(p["xattn"]["k"], enc_out), cfg.n_heads, xcfg.dh)
+    v = split_heads(L.dense(p["xattn"]["v"], enc_out), cfg.n_heads, xcfg.dh)
+    o = L.sharded_flash_attention(q, k, v, causal=False, block=512)
+    # constrained as self-attention's output is (a no-op without a mesh):
+    # its gradient then reaches the output projection split by rows only
+    return x + shard(L.dense(p["xattn"]["o"], merge_heads(o)),
+                     "batch", "seq", "embed_act")
 
 
 def _ffn_half(p, kind: str, cfg: ModelConfig, x: torch.Tensor) -> tuple:
@@ -437,7 +575,8 @@ def _apply_block(p, kind: str, cfg: ModelConfig, x: torch.Tensor,
 
 def _logits(model: LM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = _norm(cfg, model.final_ln, x)
-    return (x @ model.head.to(cfg.activ_dtype)).float()
+    return shard((x @ model.head.to(cfg.activ_dtype)).float(),
+                 "batch", "seq", "vocab")
 
 
 # ---------------------------------------------------------------------------
@@ -463,6 +602,10 @@ def _period(model: LM, cfg: ModelConfig, p0: int, x: torch.Tensor,
                               positions, enc_out)
         for k, v in aux.items():
             auxes[k] = auxes.get(k, 0.0) + v
+    # Megatron-SP: the remat-saved period boundary is sharded over `model`
+    # along the sequence, cutting saved-activation memory by the TP degree.
+    if x.shape[1] > 1:
+        x = shard(x, "batch", "seq_res", "embed_act")
     return x, auxes
 
 
@@ -526,7 +669,17 @@ def loss_fn(model: LM, cfg: ModelConfig, batch: dict) -> tuple:
     targets = batch["tokens"][:, 1:].long()
     lg = logits[:, :-1]
     lse = torch.logsumexp(lg, -1)
-    nll = lse - torch.gather(lg, -1, targets[..., None])[..., 0]
+    if current_mesh() is None:
+        target_logit = torch.gather(lg, -1, targets[..., None])[..., 0]
+    else:
+        # CE without gathering along the vocab-sharded axis, as the
+        # reference: the one-hot contraction keeps the logits vocab-sharded
+        # (one term is nonzero, so the same number as the gather)
+        onehot = (targets[..., None] == torch.arange(
+            cfg.vocab, device=lg.device)).to(lg.dtype)
+        onehot = shard(onehot, "batch", "seq", "vocab")
+        target_logit = torch.einsum("bsv,bsv->bs", lg, onehot)
+    nll = lse - target_logit
     mask = batch.get("loss_mask")
     mask = (mask[:, 1:].to(nll.dtype) if mask is not None
             else torch.ones_like(nll))

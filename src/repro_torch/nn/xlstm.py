@@ -20,6 +20,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.nn import layers as L
+from repro_torch.nn.common import merge_heads, rows_local, shard, split_heads
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +80,15 @@ def init_mlstm(draw, cfg: XLSTMConfig) -> dict:
     }
 
 
+def mlstm_logical() -> dict:
+    """The reference's logical axes of :func:`init_mlstm`'s leaves."""
+    return {"up": ("embed", "mlp"), "q": ("mlp", "mlp"), "k": ("mlp", "mlp"),
+            "v": ("mlp", "mlp"), "i_gate": ("mlp", "heads"),
+            "i_bias": ("heads",), "f_gate": ("mlp", "heads"),
+            "f_bias": ("heads",), "o_gate": ("mlp", "mlp"),
+            "down": ("mlp", "embed")}
+
+
 def _mlstm_step(C, n, m, q, k, v, i_pre, f_pre, o) -> tuple:
     """One token for all heads. C: [B, H, dh, dh]; n: [B, H, dh]; m: [B, H];
     q/k/v/o: [B, H, dh]; i_pre/f_pre: [B, H]."""
@@ -100,29 +110,42 @@ def mlstm(p, x: torch.Tensor, cfg: XLSTMConfig, state=None) -> tuple:
     H, dh = cfg.n_heads, cfg.dh
     up = x @ p["up"].to(x.dtype)
     xi, z = torch.chunk(up, 2, dim=-1)  # [B, S, di]
+    xi = shard(xi, "batch", "seq", "mlp")
 
     def heads(w, scale=None):
-        t = (xi @ p[w].to(x.dtype)).reshape(B, S, H, dh).float()
+        t = split_heads(xi @ p[w].to(x.dtype), H, dh).float()
         return t if scale is None else t * scale
 
     q, k = heads("q", dh ** -0.5), heads("k", dh ** -0.5)
     v, o = heads("v"), heads("o_gate")
-    i_pre = (xi @ p["i_gate"].to(x.dtype) + p["i_bias"].to(x.dtype)).float()
-    f_pre = (xi @ p["f_gate"].to(x.dtype) + p["f_bias"].to(x.dtype)).float()
+    # the gate projections constrained to their heads before the bias is
+    # added (a no-op without a mesh): under a mesh the product is a
+    # partial sum over the inner dim's split, and torch 2.11's DTensor
+    # would turn the heads-split bias into a partial sum to add it
+    i_pre = (shard(xi @ p["i_gate"].to(x.dtype), "batch", "seq", "heads")
+             + p["i_bias"].to(x.dtype)).float()
+    f_pre = (shard(xi @ p["f_gate"].to(x.dtype), "batch", "seq", "heads")
+             + p["f_bias"].to(x.dtype)).float()
     if state is None:
         state = init_mlstm_state(B, cfg, x.device)
 
-    def step(carry, t):
-        C, n, m, h = _mlstm_step(*carry, q[:, t], k[:, t], v[:, t],
-                                 i_pre[:, t], f_pre[:, t], o[:, t])
-        return (C, n, m), h
+    remat = L.recording(x, p)
 
-    (C, n, m), h = _chunked_steps(
-        step, (state["C"], state["n"], state["m"]), S, cfg.chunk,
-        L.recording(x, p))
-    h = h.reshape(B, S, cfg.d_inner).to(x.dtype)
+    def steps(C, n, m, q, k, v, i_pre, f_pre, o):
+        def step(carry, t):
+            C, n, m, h = _mlstm_step(*carry, q[:, t], k[:, t], v[:, t],
+                                     i_pre[:, t], f_pre[:, t], o[:, t])
+            return (C, n, m), h
+
+        (C, n, m), h = _chunked_steps(step, (C, n, m), S, cfg.chunk, remat)
+        return C, n, m, h
+
+    # the recurrence on each rank's rows under a mesh
+    C, n, m, h = rows_local(steps, (state["C"], state["n"], state["m"], q, k,
+                                    v, i_pre, f_pre, o), n_out=4)
+    h = merge_heads(h).to(x.dtype)  # [B, S, di]
     y = (h * L._silu(z)) @ p["down"].to(x.dtype)
-    return y, {"C": C, "n": n, "m": m}
+    return shard(y, "batch", "seq", "embed_act"), {"C": C, "n": n, "m": m}
 
 
 def init_mlstm_state(batch: int, cfg: XLSTMConfig, device=None) -> dict:
@@ -153,6 +176,12 @@ def init_slstm(draw, cfg: XLSTMConfig) -> dict:
             "down": draw((2 * d, d), (1.0 / (2 * d)) ** 0.5)}
 
 
+def slstm_logical() -> dict:
+    """The reference's logical axes of :func:`init_slstm`'s leaves."""
+    return {"zi": ("embed", "mlp"), "ri": ("embed", "mlp"), "bias": ("mlp",),
+            "up": ("embed", "mlp"), "down": ("mlp", "embed")}
+
+
 def _slstm_step(p, c, n, m, h, x_t) -> tuple:
     """One token. c, n, m: [B, d] fp32; h, x_t: [B, d] (x_t [B, 4d]) in
     the working type."""
@@ -174,16 +203,26 @@ def slstm(p, x: torch.Tensor, cfg: XLSTMConfig, state=None) -> tuple:
     if state is None:
         state = init_slstm_state(B, cfg, x.device)
 
-    def step(carry, t):
-        carry = _slstm_step(p, *carry, xz[:, t])
-        return carry, carry[3]
+    remat = L.recording(x, p)
 
-    (c, n, m, h), hseq = _chunked_steps(  # hseq [B, S, d]
-        step, (state["c"], state["n"], state["m"], state["h"].to(x.dtype)),
-        S, cfg.chunk, L.recording(x, p))
+    def steps(c, n, m, h, xz, ri, bias):
+        pr = {"ri": ri, "bias": bias}
+
+        def step(carry, t):
+            carry = _slstm_step(pr, *carry, xz[:, t])
+            return carry, carry[3]
+
+        (c, n, m, h), hseq = _chunked_steps(step, (c, n, m, h), S, cfg.chunk,
+                                            remat)
+        return c, n, m, h, hseq  # hseq [B, S, d]
+
+    # the recurrence on each rank's rows under a mesh
+    c, n, m, h, hseq = rows_local(
+        steps, (state["c"], state["n"], state["m"], state["h"].to(x.dtype),
+                xz), shared=(p["ri"], p["bias"]), n_out=5)
     a, b = torch.chunk(hseq @ p["up"].to(x.dtype), 2, dim=-1)
     y = torch.cat([L._gelu(a), b], -1) @ p["down"].to(x.dtype)
-    return y, {"c": c, "n": n, "m": m, "h": h.float()}
+    return shard(y, "batch", "seq", "embed_act"), {"c": c, "n": n, "m": m, "h": h.float()}
 
 
 def init_slstm_state(batch: int, cfg: XLSTMConfig, device=None) -> dict:

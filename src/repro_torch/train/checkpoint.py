@@ -14,7 +14,12 @@ so that a checkpoint written by either package restores in the other::
     memory before it returns and hands the writing to a background thread;
   * retention: the last ``keep`` checkpoints stay;
   * restore onto any device: leaves are read on the host and placed on each
-    template leaf's device (or ``device=``), cast to its dtype.
+    template leaf's device (or ``device=``), cast to its dtype;
+  * distributed leaves: a DTensor leaf is saved whole (``full_tensor()``,
+    a collective every rank of its mesh joins), and in a process group of
+    several ranks only rank 0 writes; ``restore(..., placements=...)``
+    puts each leaf onto a ``DeviceMesh`` with the placements given, which
+    may be another mesh than the one it was saved from (elastic restore).
 
 Leaves are numbered in JAX's flattening order (dict keys sorted, lists and
 tuples in order, ``None`` holds no leaf), which is what makes the two
@@ -64,15 +69,36 @@ def unflatten(like, leaves: list):
     return build(like)
 
 
+def _leaves_like(like, tree) -> list:
+    """One entry of ``tree`` per leaf of ``like``, in :func:`flatten`'s
+    order: ``tree`` mirrors ``like``'s dicts and lists down to the leaves
+    (an entry there may be any object), and a None where ``like`` has a
+    subtree stands for every leaf below it."""
+    if like is None:
+        return []
+    if isinstance(like, dict):
+        return [x for k in sorted(like) for x in _leaves_like(
+            like[k], None if tree is None else tree[k])]
+    if isinstance(like, (list, tuple)):
+        return [x for i, v in enumerate(like) for x in _leaves_like(
+            v, None if tree is None else tree[i])]
+    return [tree]
+
+
 def _path_keys(n: int):
     return [f"leaf_{i:05d}" for i in range(n)]
 
 
 def _to_host(x) -> np.ndarray:
     """A host copy of ``x``: never a view of a CPU tensor, which the next
-    training step updates in place while the writer thread reads it."""
+    training step updates in place while the writer thread reads it.  A
+    DTensor is gathered whole first."""
     if isinstance(x, torch.Tensor):
+        from torch.distributed.tensor import DTensor
+
         x = x.detach()
+        if isinstance(x, DTensor):
+            x = x.full_tensor()
         if x.dtype == torch.bfloat16:
             return x.float().cpu().numpy()  # .float() copies
         return x.to("cpu", copy=True).numpy()
@@ -106,10 +132,16 @@ class CheckpointManager:
 
     def save(self, step: int, tree: Any, extra: dict | None = None) -> None:
         """Snapshot ``tree`` at ``step``. Returns once the leaves are on the
-        host; the files are written on a background thread if async."""
+        host; the files are written on a background thread if async.  With
+        DTensor leaves every rank of their meshes calls this; in a process
+        group only rank 0 writes."""
         # Copy to host memory NOW: the training step updates the tensors in
         # place next.
         host_leaves = [_to_host(x) for x in flatten(tree)]
+        import torch.distributed as dist
+
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return
         payload = {"treedef": None, "step": step, "extra": extra or {}}
         self.wait()  # one in-flight save at a time
         if self.async_save:
@@ -163,11 +195,17 @@ class CheckpointManager:
             return None
         return int(name.split("_")[1])
 
-    def restore(self, step: int, like: Any, device=None) -> tuple:
+    def restore(self, step: int, like: Any, device=None,
+                placements=None) -> tuple:
         """Restore into the structure of ``like``: returns ``(tree, extra)``
         with new tensors, each on its template leaf's device (or on
         ``device``) in its dtype.  The checkpoint does not care where it was
-        written from."""
+        written from.
+
+        ``placements`` mirrors ``like`` with, per leaf, None or ``(mesh,
+        [placement per mesh dim])``: such a leaf becomes a DTensor on that
+        ``DeviceMesh`` (``distribute_tensor``; every rank calls this), on
+        the mesh's device type."""
         d = os.path.join(self.directory, f"step_{step:09d}")
         with open(os.path.join(d, "manifest.json")) as f:
             payload = json.load(f)
@@ -179,4 +217,10 @@ class CheckpointManager:
                                  f"template has {len(keys)}")
             new = [_from_host(data[k], leaf, device)
                    for k, leaf in zip(keys, leaves)]
+        if placements is not None:
+            from torch.distributed.tensor import distribute_tensor
+
+            new = [t if pl is None else distribute_tensor(
+                t.to(pl[0].device_type), pl[0], list(pl[1]))
+                for t, pl in zip(new, _leaves_like(like, placements))]
         return unflatten(like, new), payload["extra"]

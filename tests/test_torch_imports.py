@@ -1,6 +1,7 @@
 """The port's boundary: ``repro_torch``, ``chip_smoke.py``, the port's
 examples (``examples/torch_*.py``), ``tools/train_phase.py``,
-``tools/lm_stack_phase.py`` and ``tools/lm_train_phase.py`` use no JAX
+``tools/lm_stack_phase.py``, ``tools/lm_train_phase.py`` and
+``tools/dist_phase.py`` use no JAX
 and nothing of the reference package ``repro``.
 
 Importing is checked in a fresh subprocess, because this test process has
@@ -19,7 +20,8 @@ SCRIPTS = [CHIP_SMOKE, ROOT / "examples" / "torch_raven_abduction.py",
            ROOT / "examples" / "torch_mimonet_superposition.py",
            ROOT / "tools" / "train_phase.py",
            ROOT / "tools" / "lm_stack_phase.py",
-           ROOT / "tools" / "lm_train_phase.py"]
+           ROOT / "tools" / "lm_train_phase.py",
+           ROOT / "tools" / "dist_phase.py"]
 
 _IMPORT_ALL = """
 import importlib, importlib.util, pkgutil, sys
@@ -45,7 +47,7 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 97  # every package and module of the port, the LM
+    assert int(count) >= 105  # every package and module of the port, the LM
     # serving slice's (nn, configs, lm, launch, runtime, flash_decode), the
     # sharded engine's (launch.mesh, engine.sharding), MIMONet's
     # (kernels.circconv, models.mimonet, core.superposition), NVSA's
@@ -55,7 +57,9 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
     # checkpoint,loop}, models.prae) and the rest of the LM stack's
     # (nn.{moe,mamba,xlstm} and the nine other architectures' configs) and
     # LM training's (data.tokens, launch.train, distributed,
-    # distributed.compression) included
+    # distributed.compression) and distribution and modelling's (compat,
+    # distributed.pipeline, nn.common, launch.{costmodel,roofline,dryrun,
+    # dryrun_matrix,roofline_table}) included
     assert bad == "[]"
 
 
@@ -71,7 +75,7 @@ def _imported(path: Path) -> set:
 
 def test_no_source_of_the_port_imports_jax_or_the_reference():
     port = sorted(PORT.rglob("*.py"))
-    assert len(port) >= 94
+    assert len(port) >= 102
     files = port + SCRIPTS
     names = {p.relative_to(PORT).as_posix() for p in port}
     assert {"nn/layers.py", "nn/transformer.py", "lm/model.py",
@@ -94,7 +98,10 @@ def test_no_source_of_the_port_imports_jax_or_the_reference():
             "configs/jamba_1_5_large_398b.py", "configs/minicpm_2b.py",
             "configs/qwen2_5_32b.py", "configs/qwen2_vl_72b.py",
             "configs/starcoder2_3b.py", "configs/whisper_small.py",
-            "configs/xlstm_125m.py"} <= names
+            "configs/xlstm_125m.py", "compat.py", "distributed/pipeline.py",
+            "nn/common.py", "launch/costmodel.py", "launch/roofline.py",
+            "launch/dryrun.py", "launch/dryrun_matrix.py",
+            "launch/roofline_table.py"} <= names
     for path in files:
         for name in _imported(path):
             top = name.split(".")[0]
