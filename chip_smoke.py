@@ -5,7 +5,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100 and the
 CUDA toolkit:  ``python3 chip_smoke.py``.  It builds every CUDA kernel of the
 port from the checkout's sources (into ``build/kernels/``), then:
 
-  1. prints the card's name and power limit and the build time;
+  1. prints the card's name and power limit and the build time, and ptxas's
+     registers, stack frame and spills of flash_decode's tensor-core
+     instantiations (rep 9-16; any spill fails);
   2. holds every kernel against its plain PyTorch version on the card, at
      the shapes LVRF serving gives it (bitwise on +-1 inputs; a Gaussian
      query case with a tolerance on the scores);
@@ -36,8 +38,9 @@ port from the checkout's sources (into ``build/kernels/``), then:
      plain version at the reference test's block-boundary cases, at the
      serving shape of Llama 3.2 3B, at rows on and next to the split
      boundaries of 2, 4 and 8 blocks a cluster, and at the other configs'
-     head shapes (Granite rep 3 dh 64, starcoder2 rep 12, rep 10 padded to
-     12), bf16 and int8 pools (2e-5);
+     head shapes (Granite rep 3 dh 64; starcoder2 rep 12, rep 10 and rep 16
+     on the tensor-core kernel, one launch each), bf16 and int8 pools
+     (2e-5);
  12. serves Llama 3.2 3B at full width (28 layers, d 3072, GQA 24/8, vocab
      128256; random bf16 weights drawn on the card) through
      ``LMEngine(slots=32, paged bs 16, chunk 64)``: 64 greedy requests of
@@ -156,7 +159,8 @@ port from the checkout's sources (into ``build/kernels/``), then:
      routing difference needs a router top-K margin of at most 1 bf16 ulp;
  27. serves starcoder2-3b at full size (rep 12: 24 query heads over 2 KV
      heads of 128) through the same LMEngine: 16 requests, complete,
-     flash_decode launches = 30 x decode steps;
+     flash_decode launches = 30 x decode steps; then 8 requests with the
+     int8 KV pool, the same checks;
  28. runs every other architecture at full width: minicpm-2b, whisper-small
      (1500 frames) and xlstm-125m whole; qwen2.5-32b at 4 layers,
      qwen2-vl-72b at 2 (256 vision patches, M-RoPE), dbrx-132b at 2 and
@@ -171,7 +175,9 @@ port from the checkout's sources (into ``build/kernels/``), then:
      ulps of it (a row the two runs route otherwise through a MoE is
      excused and named);
  30. times flash_decode at Granite's shape (rep 3, dh 64) and starcoder2's
-     (rep 12, dh 128), cold L2, beside its bound, plain version and SDPA;
+     (rep 12, dh 128; bf16 and int8, the tensor-core kernel: no slower than
+     SDPA cold) and at rep 16, cold L2, beside its bound, plain version and
+     SDPA, with the time at each split count;
  31. trains by ``launch/train.py``'s recipe (batch 8 x 128 tokens of
      ``TokenDataset``, AdamW at fp32 state, cosine 3e-4, clip 1.0, remat
      "full"): (a) Llama 3.2 3B at full width in the training layout
@@ -827,10 +833,11 @@ FD_LENS = ((1, 1, 1), (3, 8, 9), (8, 16, 24), (9, 17, 23), (16, 24, 8),
            (24, 24, 24), (0, 5, 0))
 FD_ATOL = FD_RTOL = 2e-5
 FD_SPLITS = (2, 4, 8)  # forced split counts held against the plain version
-# The other configs' head shapes (G, rep, dh): Granite-MoE 3B, starcoder2-3b
-# and a rep the source does not instantiate (padded with zero heads to 12).
+# The other configs' head shapes (G, rep, dh): Granite-MoE 3B, starcoder2-3b,
+# and the tensor-core kernel's other reps (one M = 16 tile of query heads).
 FD_CONFIG_SHAPES = {"granite-moe-3b-a800m": (8, 3, 64),
-                    "starcoder2-3b": (2, 12, 128), "rep 10": (2, 10, 128)}
+                    "starcoder2-3b": (2, 12, 128), "rep 10": (2, 10, 128),
+                    "rep 16": (2, 16, 128)}
 # Phase 15's cold timing: input sets rotated in one graph, so that a round's
 # live K/V exceeds twice the H100's 50 MB L2 (data sheet).
 FD_COLD_SETS = {"bf16": 4, "int8": 8}
@@ -967,11 +974,11 @@ def phase_flash_decode(torch, dev, fd):
                     check(kv, q, pool, table, kv_lens,
                           f"{name}'s shape, 8 blocks a cluster", 8))
             err[f"{name}, {kv}"] = d
+            cores = ("tensor" if rep >= fdk.WIDE_MIN_REP else "CUDA")
             print(f"phase 11: flash_decode ({kv} pool) at {name}'s shape B="
-                  f"{LM_SLOTS} G={g} rep={rep} (runs at "
-                  f"{fdk.launch_rep(rep)}) dh={dh} bs={LM_BLOCK} W={width}: "
-                  f"max |kernel - plain| {d:.3g} (split count chosen and 8)",
-                  flush=True)
+                  f"{LM_SLOTS} G={g} rep={rep} ({cores} cores) dh={dh} "
+                  f"bs={LM_BLOCK} W={width}: max |kernel - plain| {d:.3g} "
+                  f"(split count chosen and 8)", flush=True)
     return err
 
 
@@ -1363,8 +1370,8 @@ def phase_fd_timing(torch, dev, fd, lens, card, *, g=8, rep=3, dh=128,
     own slice of the pool; the bound share and the comparison with SDPA use
     these.  Warm: one input set, replayed, partly from the L2.  Also cold:
     every row at the mean length, and each forced split count.  ``gate``:
-    the kernel must be no slower than SDPA cold (phase 15's redesigned
-    shape; the other configs' shapes are timed, not gated)."""
+    the kernel must be no slower than SDPA cold (phase 15's shapes and
+    starcoder2-3b's; Granite's and rep 16 are timed, not gated)."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -1374,7 +1381,10 @@ def phase_fd_timing(torch, dev, fd, lens, card, *, g=8, rep=3, dh=128,
     kv_lens = torch.from_numpy(np.asarray(lens, np.int32)).to(dev)
     even = torch.full_like(kv_lens, int(round(float(np.mean(lens)))))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    chosen = k.split_count(LM_SLOTS, g, width * LM_BLOCK, sms)
+    chosen = {kv: k.split_count(
+        LM_SLOTS, g, width * LM_BLOCK, sms,
+        k.wide_clusters(dev.index or 0, dh, kv == "int8")
+        if rep >= k.WIDE_MIN_REP else None) for kv in kvs}
     out = {}
     for kv in kvs:
         b_ms, b_by, nbytes = fd_bound(lens, g, rep, dh, kv == "int8")
@@ -1431,10 +1441,11 @@ def phase_fd_timing(torch, dev, fd, lens, card, *, g=8, rep=3, dh=128,
         ms, lib_ms = min(k1, k2), min(l1, l2)
         out[kv] = {"ms": ms, "plain_ms": min(p1, p2), "bound_ms": b_ms,
                    "bound_by": b_by, "library_ms": lib_ms, "warm_ms": k_warm,
-                   "library_warm_ms": l_warm, "splits": chosen}
+                   "library_warm_ms": l_warm, "splits": chosen[kv],
+                   "by_split": by_split}
         print(f"phase {phase}: flash_decode ({kv} pool) at B={LM_SLOTS} G={g} "
               f"rep={rep} dh={dh} bs={LM_BLOCK} W={width}, mean live length "
-              f"{np.mean(lens):.0f}, {chosen} blocks a cluster (split_count, "
+              f"{np.mean(lens):.0f}, {chosen[kv]} blocks a cluster (split_count, "
               f"{sms} SMs) on {card}: device time (CUDA graph), cold L2 "
               f"({n_sets} input sets rotated, {n_sets * nbytes / 1e6:.1f} MB "
               f"of live K/V a round): kernel {k1:.5f}/{k2:.5f} ms, plain "
@@ -3385,6 +3396,7 @@ def phase_train(torch, dev, rs, cc, card) -> dict:
 GRANITE, STARCODER = "granite-moe-3b-a800m", "starcoder2-3b"
 GRANITE_PARAMS = 3_374_295_552
 STARCODER_REQUESTS = 16
+STARCODER_INT8_REQUESTS = 8
 # A MoE router choice within this many bf16 ulps (the K-th largest router
 # logit over the next) may flip between two runs whose bf16 logits differ
 # by an ulp; a pair past DEV_ULPS is excused only at such a step.
@@ -3542,8 +3554,11 @@ def phase_granite(torch, dev, fd, card) -> dict:
 
 def phase_starcoder(torch, dev, fd, card) -> dict:
     """starcoder2-3b at full size (30 layers, d 3072, 24 query heads over 2
-    KV heads of 128: rep 12) through LMEngine: 16 requests, complete, no
-    non-finite logit, flash_decode launches = 30 x decode steps."""
+    KV heads of 128: rep 12, the tensor-core kernel) through LMEngine: 16
+    requests, complete, no non-finite logit, flash_decode launches = 30 x
+    decode steps; then 8 with the int8 KV pool, the same checks."""
+    import dataclasses
+
     from repro_torch.configs import registry
     from repro_torch.nn import transformer as T
 
@@ -3566,7 +3581,17 @@ def phase_starcoder(torch, dev, fd, card) -> dict:
           f"wall {run['wall'] * 1e3:.1f} ms, {out['tokens_per_s']:.1f} "
           f"generated tokens/s; flash_decode launches {run['launches']} = "
           f"{cfg.n_layers} x {run['dispatches']}", flush=True)
-    del run, model
+    del run
+    run8 = serve_lm(torch, dev, dataclasses.replace(cfg, kv_cache_dtype="int8"),
+                    model, prompts[:STARCODER_INT8_REQUESTS], fd,
+                    "starcoder2 int8 run")
+    out["int8_launches"] = run8["launches"]
+    print(f"phase 27: {cfg.name}, int8 KV pool: {STARCODER_INT8_REQUESTS} "
+          f"greedy requests on {card}: all {LM_NEW} tokens, no non-finite "
+          f"logit; wall {run8['wall'] * 1e3:.1f} ms; flash_decode launches "
+          f"{run8['launches']} = {cfg.n_layers} x {run8['dispatches']}",
+          flush=True)
+    del run8, model
     torch.cuda.empty_cache()
     return out
 
@@ -4516,6 +4541,33 @@ def phase_dist(torch, dev, card) -> dict:
     return out
 
 
+def phase_spills(build) -> list:
+    """ptxas's registers, stack frame and spills of flash_decode's
+    tensor-core instantiations (rep 9-16, one a head width and pool type),
+    from the build's ``-Xptxas -v`` output; a spill fails."""
+    import re
+
+    wide = []
+    for u in build.resource_usage(build.compile_log("flash_decode")):
+        m = re.search(r"flash_decode_wide_kernelILi(\d+)ELb([01])E",
+                      u["function"])
+        if m:
+            wide.append({"dh": int(m.group(1)),
+                         "pool": "int8" if m.group(2) == "1" else "bf16", **u})
+    print("phase 1: ptxas -v, flash_decode's tensor-core kernel (rep 9-16): "
+          + "; ".join(f"dh {u['dh']} {u['pool']}: {u.get('registers')} "
+                      f"registers, {u.get('stack')} bytes stack frame, "
+                      f"{u.get('spill_stores')} bytes spill stores, "
+                      f"{u.get('spill_loads')} bytes spill loads"
+                      for u in wide), flush=True)
+    if len(wide) != 8 or any(u.get("spill_stores", 1) or u.get("spill_loads", 1)
+                             for u in wide):
+        raise AssertionError("phase 1: flash_decode's tensor-core kernel "
+                             "spills, or ptxas did not report all 8 "
+                             "instantiations")
+    return wide
+
+
 def main() -> int:
     import torch
 
@@ -4545,6 +4597,7 @@ def main() -> int:
     libs = _build.build_all()
     print(f"phase 1: built {sorted(libs)} with nvcc in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    phase_spills(_build)
 
     err = phase_kernels(rs, ref, torch, dev)
     dense_launches, _ = phase_engine(torch, dev, rs)
@@ -4578,8 +4631,11 @@ def main() -> int:
                                  rep=3, dh=64, kvs=("bf16",), phase=30,
                                  gate=False)["bf16"],
         STARCODER: phase_fd_timing(torch, dev, fd, starcoder["lens"], card,
-                                   g=2, rep=12, dh=128, kvs=("bf16",),
-                                   phase=30, gate=False)["bf16"]}
+                                   g=2, rep=12, dh=128, kvs=("bf16", "int8"),
+                                   phase=30)}
+    rep16 = phase_fd_timing(torch, dev, fd, starcoder["lens"], card, g=2,
+                            rep=16, dh=128, kvs=("bf16",), phase=30,
+                            gate=False)["bf16"]
     lm_train = phase_lm_train(torch, dev, fd, card)
     launched = kernel_launches(rs, sim, fd, cc)
     phase_dist(torch, dev, card)
@@ -4628,13 +4684,21 @@ def main() -> int:
             if kv == "bf16" else {})}
         for kv in ("bf16", "int8")
     ] + [
-        {"name": f"flash_decode[bf16, {arch}]", "route": "cuda",
+        {"name": f"flash_decode[{kv}, {arch}]", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu",
          "replaces": "src/repro/kernels/flash_decode/kernel.py:87",
-         "launches": run["launches"],
-         "max_abs_err": fd_err[f"{arch}, bf16"], **cfg_times[arch],
-         "shape": "B 32, G {}, rep {}, dh {}".format(*FD_CONFIG_SHAPES[arch])}
-        for arch, run in ((GRANITE, granite), (STARCODER, starcoder))
+         "launches": launches, "max_abs_err": fd_err[f"{arch}, {kv}"],
+         **times,
+         "shape": "B 32, G {}, rep {}, dh {}".format(*FD_CONFIG_SHAPES[arch]),
+         **({"rep16_" + key: rep16[key] for key in
+             ("ms", "plain_ms", "bound_ms", "library_ms", "by_split")}
+            if (arch, kv) == (STARCODER, "bf16") else {})}
+        for arch, kv, launches, times in (
+            (GRANITE, "bf16", granite["launches"], cfg_times[GRANITE]),
+            (STARCODER, "bf16", starcoder["launches"],
+             cfg_times[STARCODER]["bf16"]),
+            (STARCODER, "int8", starcoder["int8_launches"],
+             cfg_times[STARCODER]["int8"]))
     ] + [
         {"name": "circconv_rows", "route": "cuda",
          "source": "src/repro_torch/kernels/circconv/csrc/circconv.cu",

@@ -4,14 +4,17 @@ Each ``kernels/<name>/csrc/<name>.cu`` compiles on its own, with ``nvcc`` for
 ``sm_90a``, into a shared library with a plain C interface under
 ``build/kernels/`` at the root of the checkout.  The library's file name
 carries a hash of the source and the flags, so an edited source rebuilds and
-an unchanged one loads at once.  Nothing here runs at import: the CPU tests
-import every module on machines without ``nvcc``.
+an unchanged one loads at once.  ``ptxas -v`` reports each kernel's
+registers, stack frame and spills in the build's output, which
+:data:`logs` keeps and :func:`resource_usage` reads.  Nothing here runs at
+import: the CPU tests import every module on machines without ``nvcc``.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -20,9 +23,10 @@ from pathlib import Path
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict = {}  # kernel name -> ctypes.CDLL, one load per process
+logs: dict = {}  # kernel name -> nvcc's output of its build in this process
 # Guards _loaded and the builds: the runtime's stepper thread may reach a
 # kernel's first use while another thread does, and two nvcc runs of one
 # process would write the same temporary file.
@@ -80,6 +84,7 @@ def build_all(names=None) -> dict:
                 tmp.unlink(missing_ok=True)
             else:
                 os.replace(tmp, lib)  # atomic: no reader sees half a file
+                logs[name] = log
         if failures:
             raise RuntimeError("CUDA kernel build failed:\n"
                                + "\n".join(failures))
@@ -95,3 +100,41 @@ def load(name: str) -> ctypes.CDLL:
                 _loaded[name] = ctypes.CDLL(str(build_all([name])[name]))
             lib = _loaded[name]
     return lib
+
+
+def compile_log(name: str) -> str:
+    """nvcc's output for kernel ``name``: its build's in this process, or
+    that of a compile into nothing when the library was built before."""
+    with _lock:
+        if name not in logs:
+            out = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-o", os.devnull,
+                 str(sources()[name])], capture_output=True, text=True)
+            if out.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name}:\n"
+                                   f"{out.stdout}{out.stderr}")
+            logs[name] = out.stdout + out.stderr
+        return logs[name]
+
+
+def resource_usage(log: str) -> list:
+    """Each kernel that ``ptxas -v`` reports in ``log``, in its order:
+    ``{"function", "stack", "spill_stores", "spill_loads", "registers"}``
+    (bytes a thread; registers a thread)."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = {"function": m.group(1)}
+            out.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None and "registers" not in cur:
+            cur["registers"] = int(m.group(1))
+    return out

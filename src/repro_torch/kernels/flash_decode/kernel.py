@@ -22,11 +22,14 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_decode.ref import check_scales
 
 HEAD_DIMS = (16, 32, 64, 128)  # head widths the source instantiates
-# Query heads per KV head the source instantiates; another rep up to MAX_REP
-# runs at the next one, its query heads padded with zero rows (starcoder2-3b
-# has rep 12, the ten reference configs 1, 3, 5, 6, 8 and 12).
-REPS = (1, 2, 3, 4, 5, 6, 7, 8, 12, 16)
+# Query heads per KV head the source takes, each in one launch: 1..8 on the
+# CUDA cores (a template a rep), WIDE_MIN_REP..16 on the tensor cores (one
+# template, M = 16 query heads, those past rep zero).  The ten reference
+# configs have 1, 3, 5, 6, 8 and 12 (starcoder2-3b).
+REPS = tuple(range(1, 17))
 MAX_REP = REPS[-1]
+WIDE_MIN_REP = 9
+WIDE_TILE = 8  # positions a warp of the tensor-core kernel takes at once
 _GRID_Y = 65535
 MAX_SPLITS = 8  # blocks of a cluster: the portable cluster size
 # Blocks per SM that split_count aims for.  Four fit (48-52 KB of shared
@@ -38,33 +41,47 @@ BLOCKS_PER_SM = 3
 MIN_SPLIT = 64  # positions of the window a split gets at the least
 
 
-def split_count(batch: int, kv_heads: int, window: int,
-                sm_count: int) -> int:
-    """Blocks per (row, KV head): the smallest power of two S <= MAX_SPLITS
-    for which the grid's S * batch * kv_heads blocks fill the card
-    (BLOCKS_PER_SM on each of ``sm_count`` SMs), as long as each split keeps
-    at least MIN_SPLIT positions of the ``window`` (W * bs).  Static shapes
-    only: reading ``kv_lens`` would sync the host and break graph capture."""
+def split_count(batch: int, kv_heads: int, window: int, sm_count: int,
+                clusters: dict | None = None) -> int:
+    """Blocks per (row, KV head), a power of two S <= MAX_SPLITS, as long as
+    each split keeps at least MIN_SPLIT positions of the ``window`` (W * bs).
+    The CUDA-core kernel (rep up to 8): the smallest S for which the grid's
+    S * batch * kv_heads blocks fill the card (BLOCKS_PER_SM on each of
+    ``sm_count`` SMs).  The tensor-core kernel passes ``clusters``, {S:
+    clusters of S blocks the card runs at once} (:func:`wide_clusters`):
+    the largest S for which all batch * kv_heads clusters run at once, so
+    that none waits for a second wave.  Static shapes only: reading
+    ``kv_lens`` would sync the host and break graph capture."""
+    rows = batch * kv_heads
     s = 1
-    while (s < MAX_SPLITS and s * batch * kv_heads < BLOCKS_PER_SM * sm_count
+    if clusters is not None:
+        while (s < MAX_SPLITS and rows <= clusters[2 * s]
+               and window >= 2 * s * MIN_SPLIT):
+            s *= 2
+        return s
+    while (s < MAX_SPLITS and s * rows < BLOCKS_PER_SM * sm_count
            and window >= 2 * s * MIN_SPLIT):
         s *= 2
     return s
 
 
 def tile(dh: int, rep: int) -> int:
-    """Positions one warp takes at once (``Shape::kBatch``): a split's
-    length is rounded up to it."""
+    """Positions one warp takes at once (``Shape::kBatch``, or
+    ``kWideTile`` from WIDE_MIN_REP query heads on): a split's length is
+    rounded up to it."""
+    if rep >= WIDE_MIN_REP:
+        return WIDE_TILE
     return (4 if rep <= 4 else 2) * (256 // dh)
 
 
 def launch_rep(rep: int) -> int:
-    """The instantiated rep a launch of ``rep`` query heads per KV head
-    runs at: ``rep`` itself, or the next one of :data:`REPS`."""
-    if not 1 <= rep <= MAX_REP:
+    """The rep a launch of ``rep`` query heads per KV head runs at: every
+    rep of :data:`REPS` is instantiated, so ``rep`` itself; raises for one
+    outside them."""
+    if rep not in REPS:
         raise ValueError(f"{rep} query heads per KV head; the kernel takes "
                          f"1..{MAX_REP}")
-    return next(r for r in REPS if r >= rep)
+    return rep
 
 
 def split_range(length: int, splits: int, rank: int, span: int) -> tuple:
@@ -100,9 +117,34 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
+        lib.flash_decode_wide_occupancy.argtypes = [i, i, i, p, p]
+        lib.flash_decode_wide_occupancy.restype = ctypes.c_int
         lib.flash_decode_error_string.argtypes = [ctypes.c_int]
         lib.flash_decode_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def wide_clusters(index: int, dh: int, quantized: bool) -> dict:
+    """``{S: clusters of S blocks card ``index`` runs at once}`` for the
+    tensor-core kernel at (dh, pool type), S = 1, 2, 4, 8, as the card
+    reports them (``cudaOccupancyMaxActiveClusters``; a host query, no
+    device work).  Its blocks (8 warps, ~95 KB of shared memory at dh 128)
+    fit two an SM, but how the SMs group bounds the clusters too: an H100
+    SXM runs 62 clusters of 4, not 66."""
+    lib = _lib()
+    out = {}
+    with torch.cuda.device(index):
+        for s in (1, 2, 4, 8):
+            per_sm, n = ctypes.c_int(), ctypes.c_int()
+            rc = lib.flash_decode_wide_occupancy(
+                dh, int(quantized), s, ctypes.byref(per_sm), ctypes.byref(n))
+            if rc != 0:
+                raise RuntimeError(
+                    f"flash_decode occupancy query failed: CUDA error {rc} "
+                    f"({lib.flash_decode_error_string(rc).decode()})")
+            out[s] = n.value
+    return out
 
 
 def _check(name, t, dtypes, shape):
@@ -132,9 +174,8 @@ def flash_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     ``kv_lens`` is clamped to [0, W * bs] in the kernel, and a block id
     outside [0, NBP) in a row's live window is masked, never read.
     ``splits`` (1..MAX_SPLITS) overrides :func:`split_count`'s choice of
-    blocks per (row, KV head).  A rep the source does not instantiate runs
-    at :func:`launch_rep`'s, in the same single launch, and the padded
-    heads' outputs are dropped."""
+    blocks per (row, KV head).  One launch and one allocation, the output,
+    at every rep."""
     from repro_torch.kernels.flash_decode import ops
 
     check_scales(k_pool, k_scale, v_scale)
@@ -163,7 +204,7 @@ def flash_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                          f"{sorted(map(str, devs))}")
     if dh not in HEAD_DIMS:
         raise ValueError(f"head_dim {dh} not in {HEAD_DIMS}")
-    run_rep = launch_rep(rep)
+    launch_rep(rep)
     if min(G, bs, W, nbp) < 1 or B > _GRID_Y:
         raise ValueError(f"need G, bs, W, NBP >= 1 and B <= {_GRID_Y}, got "
                          f"B={B} G={G} bs={bs} W={W} NBP={nbp}")
@@ -175,26 +216,26 @@ def flash_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
         raise ValueError("pool or table too large for 32-bit positions")
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError("the K/V pools must be 16-byte aligned")
-    if run_rep != rep:  # zero query heads up to the instantiated rep
-        q = torch.cat([q, q.new_zeros((B, G, run_rep - rep, dh))], dim=2)
-    out = torch.empty((B, G, run_rep, dh), dtype=torch.float32,
-                      device=q.device)
+    out = torch.empty((B, G, rep, dh), dtype=torch.float32, device=q.device)
     if B == 0:
-        return out[:, :, :rep]
+        return out
     lib = _lib()
     with torch.cuda.device(q.device):
         if splits is None:
-            splits = split_count(B, G, W * bs,
-                                 _sm_count(torch.cuda.current_device()))
+            index = torch.cuda.current_device()
+            splits = split_count(
+                B, G, W * bs, _sm_count(index),
+                wide_clusters(index, dh, quantized)
+                if rep >= WIDE_MIN_REP else None)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_decode_launch(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             k_scale.data_ptr() if quantized else None,
             v_scale.data_ptr() if quantized else None,
             table.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-            B, G, run_rep, nbp, bs, W, dh, int(quantized), splits, stream)
+            B, G, rep, nbp, bs, W, dh, int(quantized), splits, stream)
     if rc != 0:
         raise RuntimeError(f"flash_decode launch failed: CUDA error {rc} "
                            f"({lib.flash_decode_error_string(rc).decode()})")
     ops.launches += 1
-    return out if run_rep == rep else out[:, :, :rep].contiguous()
+    return out

@@ -30,6 +30,21 @@ import torch
 _NEG = -1e30
 
 
+def tf32_split(x: torch.Tensor) -> tuple:
+    """``(hi, lo)`` of fp32 ``x``: hi = x rounded to the nearest TF32 (10
+    stored mantissa bits, ties away from zero, as ``cvt.rna.tf32.f32``), lo =
+    the rest rounded the same way.  The tensor-core kernel (rep 9-16)
+    multiplies q and the probabilities as these two terms; the tests
+    restate its arithmetic with it."""
+    def rna(t):
+        bits = t.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    x = x.to(torch.float32)
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
 def check_scales(k_pool, k_scale, v_scale) -> None:
     if k_pool.dtype == torch.int8 and (k_scale is None or v_scale is None):
         raise ValueError("int8 KV pool requires k_scale/v_scale pools")

@@ -492,19 +492,26 @@ def test_flash_decode_kernel_refuses_bad_inputs(cuda):
 
 
 # The head shapes of the reference's other configs: Granite-MoE 3B (8 KV
-# heads of 64, rep 3), starcoder2-3b (2 of 128, rep 12), the largest rep the
-# source instantiates, and reps padded with zero query heads to 12 and 16.
-@pytest.mark.cuda
-@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
-@pytest.mark.parametrize("g,rep,dh,bs,width", [
+# heads of 64, rep 3), starcoder2-3b (2 of 128, rep 12); then every rep of
+# the tensor-core kernel (9-16, one M = 16 tile of query heads) at every
+# head width.
+FD_CONFIG_REPS = [
     (8, 3, 64, 16, 35),  # granite-moe-3b-a800m
     (2, 12, 128, 16, 35),  # starcoder2-3b
     (2, 16, 128, 16, 9),
-    (2, 10, 128, 16, 9),  # padded to 12
-    (3, 9, 64, 8, 5),  # padded to 12
-    (1, 13, 32, 16, 4),  # padded to 16
+    (2, 10, 128, 16, 9),
+    (3, 9, 64, 8, 5),
+    (1, 13, 32, 16, 4),
     (2, 16, 16, 8, 3),
-])
+]
+FD_CONFIG_REPS += [(2, rep, dh, 16, 9) for rep in range(9, 17)
+                   for dh in (16, 32, 64, 128)
+                   if (2, rep, dh, 16, 9) not in FD_CONFIG_REPS]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("g,rep,dh,bs,width", FD_CONFIG_REPS)
 def test_flash_decode_kernel_at_every_configs_rep(cuda, kv_dtype, g, rep, dh,
                                                   bs, width):
     from repro_torch.kernels.flash_decode import kernel as fdk
@@ -517,11 +524,11 @@ def test_flash_decode_kernel_at_every_configs_rep(cuda, kv_dtype, g, rep, dh,
     got = _fd_check(q * dh ** -0.5, pool, table, lens)
     assert got.shape == (b, g, rep, dh) and got.is_contiguous()
     assert torch.equal(got[4], torch.zeros_like(got[4]))
-    for splits in (2, 8):  # the split merge at the wide reps too
+    for splits in (1, 2, 8):  # the split merge at the wide reps too
         torch.testing.assert_close(
             _fd_kernel(q * dh ** -0.5, pool, table, lens, splits), got,
             atol=2e-5, rtol=2e-5)
-    assert fdk.launch_rep(rep) in fdk.REPS
+    assert fdk.launch_rep(rep) == rep  # no rep is padded
 
 
 # The split-KV design at the serving widths of Llama 3.2 3B: a cluster of
@@ -602,6 +609,67 @@ def test_flash_decode_kernel_is_bitwise_repeatable(cuda, kv_dtype):
     first, second = _fd_kernel(*args), _fd_kernel(*args)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+# starcoder2-3b's head shape on the tensor-core kernel (2 KV heads of 128,
+# rep 12) at the serving window.
+FD_WIDE = dict(g=2, rep=12, dh=128, bs=16, width=35)
+
+
+def _fd_wide_inputs(lens, kv_dtype, seed, dev):
+    f = FD_WIDE
+    q, pool, table = _fd_inputs(len(lens), f["g"], f["rep"], f["dh"], f["bs"],
+                                f["width"], kv_dtype, seed, dev)
+    return (q * f["dh"] ** -0.5, pool, table,
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("splits", [2, 4, 8])
+def test_flash_decode_wide_kernel_at_split_boundaries(cuda, kv_dtype, splits):
+    from repro_torch.kernels.flash_decode import kernel as fdk
+
+    f = FD_WIDE
+    span = fdk.tile(f["dh"], f["rep"])
+    assert span == fdk.WIDE_TILE
+    lens = fdk.split_edges(span, splits, f["bs"] * f["width"])
+    q, pool, table, kv_lens = _fd_wide_inputs(lens, kv_dtype, splits, cuda)
+    got = _fd_check(q, pool, table, kv_lens, splits=splits)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))  # lens[0] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_flash_decode_wide_kernel_is_bitwise_repeatable(cuda, kv_dtype):
+    lens = np.random.default_rng(6).integers(0, 561, 32).tolist()
+    args = _fd_wide_inputs(lens, kv_dtype, 6, cuda)
+    first, second = _fd_kernel(*args), _fd_kernel(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_flash_decode_rep10_is_one_launch_and_one_allocation(cuda, kv_dtype):
+    """No padding of q and no copy of the output: a call at rep 10 launches
+    once and allocates only its output."""
+    from repro_torch.kernels.flash_decode import ops as fd
+
+    q, pool, table = _fd_inputs(4, 2, 10, 128, 16, 9, kv_dtype, 10, cuda)
+    q = q * 128 ** -0.5
+    lens = torch.tensor([1, 144, 0, 77], dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    launches = fd.launches
+    allocated = torch.cuda.memory_stats(cuda)["allocation.all.allocated"]
+    got = fd.flash_decode(q, pool, table, lens)
+    assert (torch.cuda.memory_stats(cuda)["allocation.all.allocated"]
+            - allocated) == 1
+    assert fd.launches == launches + 1
+    assert got.shape == (4, 2, 10, 128) and got.is_contiguous()
+    want = fd.flash_decode_plain(q, pool["k"], pool["v"], table, lens,
+                                 pool.get("k_scale"), pool.get("v_scale"))
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
 
 
 @pytest.mark.cuda

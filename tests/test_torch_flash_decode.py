@@ -294,3 +294,236 @@ def test_split_and_merge_gives_the_plain_result(kv_dtype, splits):
     torch.testing.assert_close(got, want, atol=2e-6, rtol=2e-6)
     for row in (0, 7):
         assert torch.equal(got[row], torch.zeros_like(got[row]))
+
+
+# -- the tensor-core kernel's arithmetic (rep 9-16), restated on the CPU -----
+#
+# From 9 query heads per KV head on, the card's kernel multiplies on the
+# tensor cores in TF32: K and V enter exactly (bf16 widened, int8 before its
+# scale), q and the probabilities P as two TF32 terms each (ref.tf32_split):
+# S = q_hi.K + q_lo.K, times the k scale; O = P_hi.V + P_lo.V, P's columns
+# times the v scale first.  The emulation below takes the products exactly
+# and sums in fp64; it must meet the plain version and the reference's kernel
+# within the kernel's contract, 2e-5, and one TF32 term must not.
+
+STARCODER2 = dict(g=2, rep=12, dh=128, bs=16, width=35)  # starcoder2-3b
+
+
+def _wide_inputs(b, g, rep, dh, bs, width, kv_dtype, seed):
+    from repro_torch.nn.layers import _quant_kv
+
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((b, g, rep, dh), np.float32)
+                         * np.float32(dh ** -0.5))
+    k = torch.from_numpy(rng.standard_normal((b * width + 1, bs, g, dh),
+                                             np.float32))
+    v = torch.from_numpy(rng.standard_normal((b * width + 1, bs, g, dh),
+                                             np.float32))
+    if kv_dtype == "int8":
+        (kp, ks), (vp, vs) = _quant_kv(k), _quant_kv(v)
+    else:
+        kp, vp, ks, vs = k.to(torch.bfloat16), v.to(torch.bfloat16), None, None
+    table = torch.from_numpy(rng.permutation(b * width).astype(np.int32)
+                             .reshape(b, width))
+    cap = bs * width
+    lens = torch.from_numpy(rng.integers(1, cap + 1, b).astype(np.int32))
+    lens[:2] = torch.tensor([0, cap])
+    return q, kp, vp, table, lens, ks, vs
+
+
+def _tf32_attention(q, kp, vp, table, lens, ks=None, vs=None, terms=2):
+    """The tensor-core kernel's arithmetic: q and P as `terms` TF32 terms,
+    exact products, fp64 sums, the softmax in fp32."""
+    B, G, rep, dh = q.shape
+    bs = kp.shape[1]
+
+    def parts(x):
+        hi, lo = fd_ref.tf32_split(x)
+        return (hi, lo) if terms == 2 else (hi,)
+
+    out = torch.zeros_like(q)
+    for b in range(B):
+        n = int(lens[b])
+        if n == 0:
+            continue
+        pos = torch.arange(n)
+        ids, off = table[b, pos // bs].long(), pos % bs
+        k = kp[ids, off].float().double()  # [n, G, dh], exact
+        v = vp[ids, off].float().double()
+        s = sum(torch.einsum("grd,ngd->grn", t.double(), k)
+                for t in parts(q[b])).float()
+        if ks is not None:
+            s = s * ks[ids, off, :, 0].T[:, None, :]
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - m)
+        pv = p if vs is None else p * vs[ids, off, :, 0].T[:, None, :]
+        o = sum(torch.einsum("grn,ngd->grd", t.double(), v)
+                for t in parts(pv)).float()
+        out[b] = o / p.sum(-1, keepdim=True)
+    return out
+
+
+def test_tf32_split_rounds_to_nearest_ties_away():
+    one = 1.0
+    x = torch.tensor([one, one + 2 ** -11, one + 3 * 2 ** -11,
+                      -(one + 2 ** -11), 2 ** -130, 3.0e38])
+    hi, lo = fd_ref.tf32_split(x)
+    assert hi.tolist() == [one, one + 2 ** -10, one + 2 ** -9,
+                           -(one + 2 ** -10), 2 ** -130, hi[5].item()]
+    bits = hi.view(torch.int32) & 0x1FFF
+    assert bool((bits == 0).all())  # 10 stored mantissa bits
+    assert bool(((lo.view(torch.int32) & 0x1FFF) == 0).all())
+    g = torch.Generator().manual_seed(0)
+    y = torch.randn(10000, generator=g) * 10
+    hi, lo = fd_ref.tf32_split(y)
+    assert bool(((hi - y).abs() <= y.abs() * 2 ** -11).all())
+    assert bool(((hi + lo - y).abs() <= y.abs() * 2 ** -21).all())
+
+
+def test_every_bf16_and_int8_value_is_exact_in_tf32():
+    """K and V enter the tensor cores as they are: every finite bf16 value,
+    and every int8 value, is a TF32 value."""
+    bf = (torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(torch.int16)
+          .view(torch.bfloat16).float())
+    bf = bf[torch.isfinite(bf)]
+    assert bf.numel() == 2 ** 16 - 2 * 2 ** 7  # infinities and NaNs out
+    i8 = torch.arange(-128, 128, dtype=torch.int32).to(torch.int8).float()
+    for x in (bf, i8):
+        hi, lo = fd_ref.tf32_split(x)
+        assert torch.equal(hi, x)
+        assert bool((lo == 0).all())
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("rep", range(9, 17))
+def test_two_tf32_terms_meet_the_plain_version_at_every_wide_rep(kv_dtype,
+                                                                 rep):
+    f = dict(STARCODER2, rep=rep)
+    args = _wide_inputs(8, **f, kv_dtype=kv_dtype, seed=rep)
+    got = _tf32_attention(*args)
+    want = fd_ref.flash_decode_plain(*args)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("rep", [9, 12, 16])
+def test_two_tf32_terms_meet_the_reference_kernel(kv_dtype, rep):
+    """Against the reference's Pallas kernel in interpret mode, at
+    starcoder2-3b's head shape (rep 12) and the ends of the wide reps."""
+    f = dict(STARCODER2, rep=rep)
+    q, kp, vp, table, lens, ks, vs = _wide_inputs(3, **f, kv_dtype=kv_dtype,
+                                                  seed=40 + rep)
+    got = _tf32_attention(q, kp, vp, table, lens, ks, vs)
+
+    def jnp_(t):
+        if t is None:
+            return None
+        if t.dtype == torch.bfloat16:
+            return jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+        return jnp.asarray(t.numpy())
+
+    want = np.asarray(rk.flash_decode(
+        jnp_(q), jnp_(kp), jnp_(vp), jnp_(table), jnp_(lens),
+        k_scale=jnp_(ks), v_scale=jnp_(vs), interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_one_tf32_term_breaks_the_contract(kv_dtype):
+    """The negative control: q and P rounded to one TF32 term each miss the
+    2e-5 contract at starcoder2-3b's shape, which two terms meet."""
+    args = _wide_inputs(8, **STARCODER2, kv_dtype=kv_dtype, seed=12)
+    want = fd_ref.flash_decode_plain(*args)
+    one = _tf32_attention(*args, terms=1)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(one, want, atol=2e-5, rtol=2e-5)
+    two = _tf32_attention(*args)
+    assert (two - want).abs().max() * 100 < (one - want).abs().max()
+
+
+def test_every_rep_is_one_launch_at_itself():
+    """No rep is padded with zero query heads: each of 1..16 runs at itself
+    (a template of its own up to 8, the tensor-core kernel from 9), and a
+    split is rounded to the batch of the kernel that runs it."""
+    assert rk_torch.REPS == tuple(range(1, 17))
+    for rep in rk_torch.REPS:
+        assert rk_torch.launch_rep(rep) == rep
+        span = rk_torch.tile(128, rep)
+        assert span == (rk_torch.WIDE_TILE if rep >= rk_torch.WIDE_MIN_REP
+                        else (4 if rep <= 4 else 2) * 2)
+    for rep in (0, 17, 24):
+        with pytest.raises(ValueError, match="query heads"):
+            rk_torch.launch_rep(rep)
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("splits", [1, 2, 8])
+def test_wide_split_and_merge_gives_the_plain_result(kv_dtype, splits):
+    """The split algebra at the tensor-core kernel's batch (8 positions a
+    warp) and starcoder2-3b's head shape."""
+    q, kp, vp, table, _, ks, vs = _wide_inputs(9, **STARCODER2,
+                                               kv_dtype=kv_dtype, seed=splits)
+    span = rk_torch.tile(128, 12)
+    lens = torch.tensor([0, 1, span - 1, span, span + 1, 2 * span + 1, 100,
+                         0, 16 * 35], dtype=torch.int32)
+    got = _split_merge(q, kp, vp, table, lens, splits, span, ks, vs)
+    want = fd_ref.flash_decode_plain(q, kp, vp, table, lens, ks, vs)
+    torch.testing.assert_close(got, want, atol=2e-6, rtol=2e-6)
+    for row in (0, 7):
+        assert torch.equal(got[row], torch.zeros_like(got[row]))
+
+
+# Clusters of S tensor-core blocks an H100 SXM runs at once, as the card
+# reported them (cudaOccupancyMaxActiveClusters, dh 128, both pools).
+H100_WIDE_CLUSTERS = {1: 264, 2: 132, 4: 62, 8: 30}
+
+
+@pytest.mark.parametrize("batch,kv_heads,window,want", [
+    (32, 2, 560, 2),  # starcoder2-3b at 32 slots: 64 clusters, 62 fit at S=4
+    (1, 2, 560, 8), (16, 2, 560, 4), (31, 2, 560, 4), (33, 2, 560, 2),
+    (200, 2, 560, 1), (1, 1, 100, 1), (1, 1, 200, 2)])
+def test_wide_split_count_keeps_every_cluster_in_one_wave(batch, kv_heads,
+                                                          window, want):
+    s = rk_torch.split_count(batch, kv_heads, window, SERVE_SMS,
+                             H100_WIDE_CLUSTERS)
+    assert s == want
+    rows = batch * kv_heads
+    assert s == 1 or rows <= H100_WIDE_CLUSTERS[s]
+    assert s == 1 or window // s >= rk_torch.MIN_SPLIT
+    if s < rk_torch.MAX_SPLITS and window >= 4 * s * rk_torch.MIN_SPLIT:
+        assert rows > H100_WIDE_CLUSTERS[2 * s]  # the next would not fit
+
+
+def test_wide_split_count_follows_the_cards_reading():
+    """The same shape on a card that holds more clusters splits further,
+    and without a reading (the CUDA-core kernel) the block rule holds."""
+    more = {s: 2 * n for s, n in H100_WIDE_CLUSTERS.items()}
+    assert rk_torch.split_count(32, 2, 560, SERVE_SMS, more) == 4
+    assert rk_torch.split_count(32, 2, 560, SERVE_SMS) == 8  # 3 an SM
+    assert rk_torch.split_count(32, 8, 560, SERVE_SMS) == 2
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z1aILi128ELb0EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z1aILi128ELb0EEvv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 2176 bytes smem
+ptxas info    : Compiling entry function '_Z1bv' for 'sm_90a'
+ptxas info    : Function properties for _Z1bv
+    104 bytes stack frame, 268 bytes spill stores, 264 bytes spill loads
+ptxas info    : Used 255 registers, 400 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_gives_each_kernels_registers_and_spills():
+    from repro_torch.kernels import _build
+
+    assert _build.resource_usage(PTXAS_LOG) == [
+        {"function": "_Z1aILi128ELb0EEvv", "stack": 0, "spill_stores": 0,
+         "spill_loads": 0, "registers": 128},
+        {"function": "_Z1bv", "stack": 104, "spill_stores": 268,
+         "spill_loads": 264, "registers": 255}]
+    assert _build.resource_usage("") == []
+    assert ("-Xptxas", "-v") == _build.NVCC_FLAGS[-2:]

@@ -3,7 +3,9 @@
 CUDA source, timed at the serving shape of Llama 3.2 3B with a cold L2.
 
 Run from the root of a checkout on a machine with an NVIDIA GPU and the CUDA
-toolkit:  ``python3 tools/flash_decode_lab.py``.  It compiles three copies of
+toolkit:  ``python3 tools/flash_decode_lab.py [--wide]``.  ``--wide`` takes
+starcoder2-3b's head shape (G 2, rep 12: the tensor-core kernel) at phase
+30's lengths in place of Llama's.  It compiles three copies of
 ``src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu`` into
 ``build/lab/`` and times each, bf16 and int8 pools, at every split count
 (CUDA-graph replay, the input sets rotated as in ``chip_smoke.py`` phase 15):
@@ -23,6 +25,7 @@ moved raises.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import subprocess
 import sys
@@ -33,11 +36,13 @@ SOURCE = ROOT / "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu"
 OUT = ROOT / "build" / "lab"
 
 LOOP = "      // Partial scores of the batch's positions"
+WIDE_LOOP = "      // Scores of heads (gq, gq + 8)"
 LOOP_END = "    }\n    t0 = hi;"
 TIMED = [  # (anchor, replacement) pairs of the instrumented copy
     ("namespace {\n", "__device__ long long g_lab[8 * 65536];\nnamespace {\n"),
     ("  cg::cluster_group cluster = cg::this_cluster();\n",
      "  cg::cluster_group cluster = cg::this_cluster();\n"
+     "  long long lab_wait = 0, lab_tiles = 0;\n"
      "  long long ck0 = clock64(), gt0;\n"
      "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(gt0));\n"),
     ("  for (int t0 = start; t0 < end;) {\n",
@@ -52,7 +57,12 @@ TIMED = [  # (anchor, replacement) pairs of the instrumented copy
      "    long long* o = g_lab + 8 * (blockIdx.x + gridDim.x * (blockIdx.y"
      " + gridDim.y * blockIdx.z));\n"
      "    o[0] = gt0; o[1] = gt1; o[2] = ck1 - ck0; o[3] = ck2 - ck1;\n"
-     "    o[4] = ck3 - ck2; o[5] = end - start;\n  }\n}"),
+     "    o[4] = ck3 - ck2; o[5] = end - start; o[6] = lab_wait;\n"
+     "    o[7] = lab_tiles;\n  }\n}"),
+    ("      cp_async_wait<kStages - 1>();  // tile `it` has landed\n",
+     "      long long cw0 = clock64();\n"
+     "      cp_async_wait<kStages - 1>();  // tile `it` has landed\n"
+     "      lab_wait += clock64() - cw0;\n      ++lab_tiles;\n"),
     ("const char* flash_decode_error_string(int code) {",
      "int lab_read(long long* host, int n) {\n"
      "  return (int)cudaMemcpyFromSymbol(host, g_lab, n * 8);\n}\n"
@@ -69,12 +79,17 @@ def _edit(src: str, pairs) -> str:
 
 
 def variants(src: str) -> dict:
-    i = src.index(LOOP)
-    j = src.index(LOOP_END, i)
-    loads_only = (src[:i] + "      acc[0][0] += __uint_as_float(*reinterpret_"
-                  "cast<const uint32_t*>(src + lane * 4));\n" + src[j:])
+    loads_only = src
+    for anchor, read in ((LOOP, "acc[0][0] += __uint_as_float(*reinterpret_"
+                                "cast<const uint32_t*>(src + lane * 4));"),
+                         (WIDE_LOOP, "o[0][0] += __uint_as_float(*reinterpret_"
+                                     "cast<const uint32_t*>(ks + lane * 4));")):
+        i = loads_only.index(anchor)
+        j = loads_only.index(LOOP_END, i)
+        loads_only = loads_only[:i] + "      " + read + "\n" + loads_only[j:]
     compute_only = _edit(src, [
         ("const int n = row >= 0 ? Sh::kChunk : 0;", "const int n = 0;"),
+        ("const int n = row >= 0 ? 16 : 0;", "const int n = 0;"),
         ("nn = row >= 0 ? 4 : 0;", "nn = 0;")])
     return {"kernel": src, "loads only": loads_only,
             "compute only": compute_only, "timeline": _edit(src, TIMED)}
@@ -109,6 +124,8 @@ def use(path) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.flash_decode_launch.argtypes = [p] * 8 + [i] * 9 + [p]
     lib.flash_decode_launch.restype = ctypes.c_int
+    lib.flash_decode_wide_occupancy.argtypes = [i, i, i, p, p]
+    lib.flash_decode_wide_occupancy.restype = ctypes.c_int
     lib.flash_decode_error_string.argtypes = [ctypes.c_int]
     lib.flash_decode_error_string.restype = ctypes.c_char_p
     _build._loaded["flash_decode"] = lib
@@ -119,6 +136,11 @@ def main() -> int:
     import numpy as np
     import torch
 
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--wide", action="store_true",
+                    help="starcoder2-3b's head shape (rep 12) in place of "
+                         "Llama's (rep 3)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("flash_decode_lab: needs an NVIDIA GPU", file=sys.stderr)
         return 1
@@ -129,13 +151,16 @@ def main() -> int:
     dev = torch.device("cuda")
     print(cs.card_line(), flush=True)
     libs = build(variants(SOURCE.read_text()))
-    prompts = cs.lm_prompts(cs.LM_REQUESTS, 128256)
-    lens = [min(len(p) + cs.LM_NEW // 2, cs.LM_MAX_LEN - 1)
-            for p in prompts[:cs.LM_SLOTS]]  # phase 15's lengths
+    if args.wide:  # phase 30's lengths (prompt lengths do not read vocab)
+        prompts = cs.lm_prompts(cs.LM_SLOTS, 2, seed=43)
+        g, rep = 2, 12
+    else:  # phase 15's
+        prompts = cs.lm_prompts(cs.LM_REQUESTS, 128256)[:cs.LM_SLOTS]
+        g, rep = 8, 3
+    lens = [min(len(p) + cs.LM_NEW // 2, cs.LM_MAX_LEN - 1) for p in prompts]
     kv_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
-    g, rep, dh, width = 8, 3, 128, -(-cs.LM_MAX_LEN // cs.LM_BLOCK)
+    dh, width = 128, -(-cs.LM_MAX_LEN // cs.LM_BLOCK)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    chosen = k.split_count(cs.LM_SLOTS, g, width * cs.LM_BLOCK, sms)
 
     def call(q, pool, table, splits):
         return k.flash_decode(q, pool["k"], pool["v"], table, kv_lens,
@@ -145,13 +170,17 @@ def main() -> int:
     for kv in ("bf16", "int8"):
         sets = [cs.fd_inputs(torch, cs.LM_SLOTS, g, rep, dh, cs.LM_BLOCK,
                              width, kv, 17 + i, dev, dh ** -0.5)
-                for i in range(cs.FD_COLD_SETS[kv])]
+                for i in range(cs.FD_COLD_SETS[kv] * (3 if args.wide else 1))]
         b_ms = cs.fd_bound(lens, g, rep, dh, kv == "int8")[0]
+        use(libs["kernel"])  # the occupancy query reads the kernel's build
+        chosen = k.split_count(
+            cs.LM_SLOTS, g, width * cs.LM_BLOCK, sms,
+            k.wide_clusters(0, dh, kv == "int8") if args.wide else None)
         for name in ("kernel", "loads only", "compute only"):
             use(libs[name])
             t = {s: cs.graph_ms(cs.rotate([
                 lambda a=a, s=s: call(*a, s) for a in sets]))
-                for s in (1, 2, 4, 8)}
+                for s in ((1, 2, 3, 4, 5, 6, 8) if args.wide else (1, 2, 4, 8))}
             print(f"{kv} {name}: cold ms by split count " + ", ".join(
                 f"S={s} {v:.5f}" for s, v in t.items())
                 + f"; at S={chosen} {b_ms / t[chosen]:.1%} of the bound",
@@ -172,7 +201,21 @@ def main() -> int:
               f"SM cycles setup {a[:, 2].mean():.0f}, loop mean "
               f"{a[:, 3].mean():.0f} max {a[:, 3].max():.0f}, merge "
               f"{a[:, 4].mean():.0f}; positions a block mean "
-              f"{a[:, 5].mean():.1f} max {a[:, 5].max():.0f}", flush=True)
+              f"{a[:, 5].mean():.1f} max {a[:, 5].max():.0f}"
+              + (f"; warp 0: tiles mean {a[:, 7].mean():.2f}, cycles waiting "
+                 f"on them mean {a[:, 6].mean():.0f} max {a[:, 6].max():.0f}"
+                 if args.wide else ""), flush=True)
+        if args.wide:
+            fn = lib.flash_decode_wide_occupancy
+            fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+            occ = []
+            for s in (1, 2, 3, 4, 5, 6, 8):
+                per_sm, clusters = ctypes.c_int(), ctypes.c_int()
+                rc = fn(dh, int(kv == "int8"), s, ctypes.byref(per_sm),
+                        ctypes.byref(clusters))
+                occ.append(f"S={s} rc {rc}: {per_sm.value} blocks an SM, "
+                           f"{clusters.value} clusters at once")
+            print(f"{kv} occupancy: " + "; ".join(occ), flush=True)
     return 0
 
 
