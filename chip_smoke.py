@@ -205,7 +205,18 @@ port from the checkout's sources (into ``build/kernels/``), then:
      each step's device time and host wall; a device time below its bound
      fails; ``compat.cost_analysis``'s FLOPs of the prefill beside
      ``costmodel.forward_flops``.  No kernel launches here;
- 33. prints one JSON line describing every kernel, the card line, and as
+ 33. runs the six user examples (``examples/torch_{quickstart,lvrf_ood,
+     engine_serving,runtime_serving,fleet_overload,tracing}.py``) on the
+     card as a user runs them (``runpy`` as ``__main__`` with ``--device
+     cuda``, traces under a temporary directory), every kernel counter set
+     to 0 before each and read after: quickstart's int8 factorization
+     launches ``similarity_int8`` F x its iterations; ``runtime_serving``
+     and ``tracing`` run contiguous, then with ``REPRO_LM_PAGED=1``, with
+     the same LM tokens and LVRF decodes, ``flash_decode`` launched n_layers
+     x decode steps paged and never contiguous; ``tracing`` injects one
+     fault and recovers once; lvrf_ood, engine_serving and fleet_overload
+     launch no kernel.  Each example's figures and wall;
+ 34. prints one JSON line describing every kernel, the card line, and as
      the last line ``{"ok": true, "device": {...}}``.
 
 A failed phase raises, and the script exits nonzero.  Without a CUDA device,
@@ -4541,6 +4552,112 @@ def phase_dist(torch, dev, card) -> dict:
     return out
 
 
+EXAMPLES = ("quickstart", "lvrf_ood", "engine_serving", "runtime_serving",
+            "fleet_overload", "tracing")
+KERNEL_COUNTERS = ("resonator_step_batch", "resonator_step_batch_masked",
+                   "resonator_step_batch_local", "similarity_int8",
+                   "flash_decode", "circconv_rows", "circconv_single")
+
+
+def zero_launches(rs, sim, fd, cc) -> None:
+    rs.launches = rs.masked_launches = rs.local_launches = 0
+    sim.launches = fd.launches = cc.rows_launches = cc.single_launches = 0
+
+
+def run_example(name: str, tmp: str, paged: bool) -> tuple:
+    """``examples/torch_<name>.py`` run as a user runs it: ``runpy`` as
+    ``__main__`` with ``--device cuda`` (a trace path under ``tmp`` for the
+    two that write one), ``REPRO_LM_PAGED=1`` when ``paged``.  Returns (the
+    figures its ``main`` returned, its wall in seconds)."""
+    import os
+    import runpy
+
+    path = ROOT / "examples" / f"torch_{name}.py"
+    argv = [str(path), "--device", "cuda"]
+    if name in ("fleet_overload", "tracing"):
+        argv.insert(1, os.path.join(tmp, f"{name}{'_paged' * paged}.json"))
+    saved_argv, saved_env = sys.argv, os.environ.pop("REPRO_LM_PAGED", None)
+    if paged:
+        os.environ["REPRO_LM_PAGED"] = "1"
+    sys.argv = argv
+    t0 = time.perf_counter()
+    try:
+        figures = runpy.run_path(str(path), run_name="__main__")["figures"]
+    finally:
+        sys.argv = saved_argv
+        os.environ.pop("REPRO_LM_PAGED", None)
+        if saved_env is not None:
+            os.environ["REPRO_LM_PAGED"] = saved_env
+    return figures, time.perf_counter() - t0
+
+
+def phase_examples(torch, rs, sim, fd, cc, card) -> dict:
+    """Phase 33: the six user examples on the card, each with every kernel
+    counter set to 0 just before it and read just after; the two runtime
+    examples contiguous and then paged."""
+    import tempfile
+
+    runs = [(name, False) for name in EXAMPLES]
+    runs.insert(4, ("runtime_serving", True))
+    runs.append(("tracing", True))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, paged in runs:
+            zero_launches(rs, sim, fd, cc)
+            figures, wall = run_example(name, tmp, paged)
+            torch.cuda.synchronize()
+            launches = dict(zip(KERNEL_COUNTERS,
+                                kernel_launches(rs, sim, fd, cc)))
+            key = name + " paged" * paged
+            out[key] = {"wall_s": wall, "launches": launches,
+                        "figures": figures}
+            fired = {k: v for k, v in launches.items() if v}
+            print(f"phase 33: {key}: {wall:.3f} s on {card}; kernel launches "
+                  f"{fired or 'none'}; figures "
+                  f"{json.dumps(figures, default=str)}", flush=True)
+
+    def only(key, **want):
+        got = {k: v for k, v in out[key]["launches"].items() if v}
+        if got != {k: v for k, v in want.items() if v}:
+            raise AssertionError(f"phase 33: {key} launched {got}, "
+                                 f"expected {want or 'no kernel'}")
+
+    q = out["quickstart"]["figures"]
+    only("quickstart",
+         similarity_int8=q["num_factors"] * q["int8_iterations"])
+    for key in ("lvrf_ood", "engine_serving", "fleet_overload",
+                "runtime_serving", "tracing"):
+        only(key)
+    for name in ("runtime_serving", "tracing"):
+        plain, paged = out[name]["figures"], out[f"{name} paged"]["figures"]
+        if paged["lm_decode_steps"] < 8 or not paged["lm_paged"] or \
+                plain["lm_paged"]:
+            raise AssertionError(f"phase 33: {name}: no paged decode")
+        only(f"{name} paged",
+             flash_decode=paged["lm_layers"] * paged["lm_decode_steps"])
+        if plain["lm_tokens"] != paged["lm_tokens"]:
+            raise AssertionError(f"phase 33: {name}: paged tokens "
+                                 f"{paged['lm_tokens']} != contiguous "
+                                 f"{plain['lm_tokens']}")
+        for run in (plain, paged):
+            if run["lvrf_decoded"] != run["lvrf_truth"]:
+                raise AssertionError(f"phase 33: {name}: an LVRF row "
+                                     "decoded wrong")
+    for key in ("tracing", "tracing paged"):
+        t = out[key]["figures"]
+        if (t["faults"], t["recoveries"], t["resolved"]) != (1, 1, 16):
+            raise AssertionError(f"phase 33: {key}: faults {t['faults']}, "
+                                 f"recoveries {t['recoveries']}, resolved "
+                                 f"{t['resolved']} (want 1, 1, 16)")
+    if out["fleet_overload"]["figures"]["resolved"] != 68:
+        raise AssertionError("phase 33: fleet_overload left a request "
+                             "unresolved")
+    print(f"phase 33: the six examples in "
+          f"{sum(r['wall_s'] for r in out.values()):.1f} s on {card}",
+          flush=True)
+    return out
+
+
 def phase_spills(build) -> list:
     """ptxas's registers, stack frame and spills of flash_decode's
     tensor-core instantiations (rep 9-16, one a head width and pool type),
@@ -4642,6 +4759,7 @@ def main() -> int:
     if kernel_launches(rs, sim, fd, cc) != launched:
         raise AssertionError("phase 32 launched a kernel: its pipeline and "
                              "steps reach no pallas_call in the reference")
+    examples = phase_examples(torch, rs, sim, fd, cc, card)
 
     src = "src/repro_torch/kernels/resonator_step/csrc/resonator_step.cu"
     kernels = [
@@ -4672,7 +4790,9 @@ def main() -> int:
         {"name": "similarity_int8", "route": "cuda",
          "source": "src/repro_torch/kernels/similarity/csrc/similarity_int8.cu",
          "replaces": "src/repro/kernels/similarity/kernel.py:29",
-         "launches": sim_launches, "max_abs_err": sim_err, **sim_times},
+         "launches": sim_launches, "max_abs_err": sim_err, **sim_times,
+         "quickstart_launches":
+             examples["quickstart"]["launches"]["similarity_int8"]},
     ] + [
         {"name": f"flash_decode[{kv}]", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu",
@@ -4680,7 +4800,10 @@ def main() -> int:
          "launches": fd_launches[kv], "max_abs_err": fd_err[kv],
          **fd_times[kv],
          **({"runtime_launches": rt_run["launches"]["flash_decode"],
-             "trained_launches": lm_train["launches"]}
+             "trained_launches": lm_train["launches"],
+             "examples_launches": {
+                 key: examples[key]["launches"]["flash_decode"]
+                 for key in ("runtime_serving paged", "tracing paged")}}
             if kv == "bf16" else {})}
         for kv in ("bf16", "int8")
     ] + [

@@ -17,6 +17,12 @@ the port:
     under ``FakeTensorMode``, inside ``sharding_ctx`` and the collective
     counter (:class:`repro_torch.launch.roofline.CollectiveCounter`).
 
+Recurrences are folded as the reference's scans are lowered once: on fake
+tensors xLSTM's steps, Mamba's chunks and the microbatches of a train step
+run three bodies (two for the microbatches), the rest allocated and their
+collectives counted (:func:`repro_torch.nn.common.scan`); memory and
+collectives equal the stepped run's (``nn.common.FOLD = False``).
+
 Memory: ``argument_bytes`` are the local shard bytes of params, optimizer
 state, cache and inputs; ``temp_bytes`` the peak of the live fake-tensor
 bytes the step makes above them.  FLOPs and HBM bytes are the analytic
@@ -52,9 +58,10 @@ from repro_torch.configs.registry import ARCHS
 from repro_torch.launch import costmodel as CM
 from repro_torch.launch import mesh as M
 from repro_torch.launch import roofline as R
+from repro_torch.nn import common
 from repro_torch.nn import transformer as T
 from repro_torch.nn.common import (DEFAULT_RULES, mesh_axes, placements,
-                                   sanitize, sharding_ctx, spec_for)
+                                   repeating, sanitize, sharding_ctx, spec_for)
 from repro_torch.train import optimizer as optim
 
 ARTIFACTS = os.path.join(os.path.dirname(__file__), "..", "..", "..",
@@ -331,9 +338,16 @@ def lower_cell(arch_id: str, shape_name: str, multi_pod: bool,
         live = _LiveBytes(_storage_keys(args))
         with sharding_ctx(mesh, rules), R.CollectiveCounter() as coll, live:
             if train:
-                for _ in range(accum):  # fake: one microbatch's shapes
-                    loss, _ = T.loss_fn(model, cfg, micro)
-                    (loss / accum).backward()
+                # fake: one microbatch's shapes.  Folded as the reference's
+                # scan over microbatches: microbatch 0 makes the gradients,
+                # microbatch 1 adds to them and stands for the rest, which
+                # would repeat its memory and collectives exactly
+                runs = min(accum, 2) if common.FOLD else accum
+                for i in range(runs):
+                    k = accum - 1 if runs < accum and i == 1 else 1
+                    with repeating(k):
+                        loss, _ = T.loss_fn(model, cfg, micro)
+                        (loss / accum).backward()
                 optim.clip_by_global_norm([p.grad for p in params], 1.0)
                 with unset_fake_temporarily():  # the counters stay real
                     opt.step()

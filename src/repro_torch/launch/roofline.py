@@ -25,6 +25,7 @@ from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.launch import mesh as M
+from repro_torch.nn.common import collective_repeat
 
 _COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                 "collective-permute")
@@ -62,8 +63,9 @@ class CollectiveCounter(TorchDispatchMode):
         self._sink = None
 
     def add(self, kind: str, nbytes: float) -> None:
-        self.bytes[kind] += nbytes
-        self.counts[kind] += 1
+        k = collective_repeat()  # a folded recurrence's body stands for k
+        self.bytes[kind] += k * nbytes
+        self.counts[kind] += k
 
     def __enter__(self):
         self._sink = M.collective_sink(self.add)

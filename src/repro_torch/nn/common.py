@@ -277,6 +277,168 @@ def rows_local(fn, args: tuple, shared: tuple = (), n_out: int = 1):
                      [(rows,)] * n_out)
 
 
+# ---------------------------------------------------------------------------
+# Recurrences on fake tensors (the dry-run)
+# ---------------------------------------------------------------------------
+
+FOLD = True  # False: a fake run dispatches every body (the stepped run)
+bodies = 0  # recurrence bodies dispatched, recomputed ones included
+
+
+def count_body() -> None:
+    global bodies
+    bodies += 1
+
+
+def collective_repeat() -> int:
+    """How many collectives each one issued now stands for: a folded
+    recurrence runs one body for the bodies it skipped
+    (``roofline.CollectiveCounter`` multiplies by it)."""
+    return getattr(_ctx, "repeat", 1)
+
+
+@contextlib.contextmanager
+def repeating(k: int):
+    """Inside the block each collective counts ``k`` times more."""
+    prev = collective_repeat()
+    _ctx.repeat = prev * k
+    try:
+        yield
+    finally:
+        _ctx.repeat = prev
+
+
+class _Repeat(torch.autograd.Function):
+    """Identity; its backward multiplies :func:`collective_repeat` by ``k``
+    (``k`` > 0) or divides it by ``-k``.  Put on a body's outputs and on its
+    carry in, it brackets that body's backward and recompute: the engine
+    runs a graph's nodes latest-made first, so nothing else runs in
+    between."""
+
+    @staticmethod
+    def forward(ctx, k, *xs):
+        ctx.k = k
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        r = collective_repeat()
+        _ctx.repeat = r * ctx.k if ctx.k > 0 else r // -ctx.k
+        return (None, *grads)
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for x in tree for t in _leaves(x)]
+
+
+def _rebuild(tree, it):
+    if isinstance(tree, torch.Tensor):
+        return next(it)
+    return type(tree)(_rebuild(x, it) for x in tree)
+
+
+def _repeat(k: int, tree):
+    leaves = _leaves(tree)
+    return _rebuild(tree, iter(_Repeat.apply(k, *leaves)))
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t._local_tensor if is_dtensor(t) else t
+
+
+def _storage_bytes(tree) -> int:
+    seen = {}
+    for t in _leaves(tree):
+        st = _local(t).untyped_storage()
+        seen[st._cdata] = st.nbytes()
+    return sum(seen.values())
+
+
+def _lump(y: torch.Tensor, n: int, stack: bool) -> torch.Tensor:
+    """A tensor of ``n`` bodies' outputs ``y`` joined on axis 1, with one
+    (fake) storage of their bytes, on ``y``'s placements."""
+    def joined(shape):
+        shape = list(shape)
+        if stack:
+            shape.insert(1, n)
+        else:
+            shape[1] *= n
+        return shape
+
+    loc = _local(y)
+    out = torch.empty(joined(loc.shape), dtype=loc.dtype, device=loc.device)
+    if not is_dtensor(y):
+        return out
+    from torch.distributed.tensor import DTensor
+
+    shape = joined(y.shape)
+    stride = [1] * len(shape)
+    for d in range(len(shape) - 2, -1, -1):
+        stride[d] = stride[d + 1] * shape[d + 1]
+    return DTensor.from_local(out, y.device_mesh, y.placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=tuple(stride))
+
+
+def scan(body, carry, n: int, stack: bool, checkpointed: bool = False):
+    """``carry, y = body(carry, i, hold)`` for i in 0..n-1 -> (carry, the
+    y's stacked (``stack``) or concatenated on axis 1).
+
+    On real tensors every body runs.  On fake ones (the dry-run), with
+    :data:`FOLD` on and n > 3, bodies 0, n - 2 and n - 1 run and the n - 3
+    between them are not dispatched: the reference lowers its scan body
+    once.  What they would leave behind is allocated at its size: their
+    outputs, one tensor in the joined result, and, when each body runs
+    under a checkpoint (``checkpointed``), the n - 3 carries those
+    checkpoints keep, handed to body n - 2 as ``hold`` so that its
+    checkpoint keeps them and its backward frees them.  Body n - 2 stands
+    for itself and the skipped ones, so the collectives it issues count
+    n - 2 times, in its backward and recompute too (:func:`collective_repeat`).
+    Fake memory and collectives are then those of the stepped run: every
+    body has the same shapes, the live bytes grow monotonically over the
+    forward bodies and shrink over the backward ones, so their peaks fall
+    in the bodies that run (``tests/test_torch_dryrun.py`` holds the two
+    runs equal).  A recording body that is not checkpointed keeps every
+    step's residuals, which the fold would not: it runs stepped."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    leaves = _leaves(carry)
+    if (not FOLD or n <= 3 or not leaves or not is_fake(leaves[0])
+            or (torch.is_grad_enabled() and not checkpointed)):
+        ys = []
+        for i in range(n):
+            carry, y = body(carry, i, None)
+            ys.append(y)
+        return carry, (torch.stack(ys, 1) if stack else torch.cat(ys, 1))
+    carry, y0 = body(carry, 0, None)
+    skipped = n - 3
+    mid = _lump(y0, skipped, stack)
+    hold = None
+    if checkpointed:
+        hold = torch.empty(skipped * _storage_bytes(carry), dtype=torch.uint8,
+                           device=_local(leaves[0]).device)
+        # held as the carry is: a checkpoint saves a tensor argument through
+        # the saved-tensor hooks (an enclosing checkpoint's drops it) and
+        # keeps any other argument as it is
+        if not isinstance(carry, torch.Tensor):
+            hold = (hold,)
+    recording = torch.is_grad_enabled() and any(
+        t.requires_grad for t in _leaves(carry))
+    if recording:
+        carry = _repeat(-(skipped + 1), carry)
+    with repeating(skipped + 1):
+        carry, y1 = body(carry, n - 2, hold)
+    if recording:
+        carry, y1 = _repeat(skipped + 1, (carry, y1))
+    del hold
+    carry, y2 = body(carry, n - 1, None)
+    if stack:
+        y0, y1, y2 = y0.unsqueeze(1), y1.unsqueeze(1), y2.unsqueeze(1)
+    return carry, torch.cat([y0, mid, y1, y2], 1)
+
+
 def param_sharding(logical_tree, mesh, rules: dict | None = None):
     """Map a tree of logical-axis tuples to DTensor placements (for the
     dry-run's parameters)."""

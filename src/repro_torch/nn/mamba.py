@@ -21,7 +21,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.nn import layers as L
-from repro_torch.nn.common import rows_local, shard
+from repro_torch.nn.common import count_body, rows_local, scan, shard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,9 +171,10 @@ def mamba(p, x: torch.Tensor, cfg: MambaConfig, state: dict | None = None
             return _chunk_scan(h, *_ssm_inputs(dict(zip(_SSM, ws)), u_chunk,
                                                cfg))
 
-        def chunk_body(h, u_chunk):
+        def chunk_body(h, u_chunk, hold=None):
             # the chunk on each rank's rows under a mesh, its weights
             # gathered (_SSM)
+            count_body()
             return rows_local(local_chunk, (h, u_chunk),
                               shared=tuple(p[n] for n in _SSM), n_out=2)
 
@@ -181,13 +182,16 @@ def mamba(p, x: torch.Tensor, cfg: MambaConfig, state: dict | None = None
         # scan body is: its [B, chunk, di, N] elements are rebuilt in the
         # backward pass, not kept for every chunk
         remat = L.recording(u, p)
-        ys = []
-        for c0 in range(0, u.shape[1], cfg.chunk):
-            args = (h, u[:, c0:c0 + cfg.chunk])
-            h, y_c = (checkpoint(chunk_body, *args, use_reentrant=False)
-                      if remat else chunk_body(*args))
-            ys.append(y_c)
-        y = torch.cat(ys, 1)[:, :S]
+
+        def body(h, c, hold):
+            args = (h, u[:, c * cfg.chunk:(c + 1) * cfg.chunk])
+            return (checkpoint(chunk_body, *args, hold, use_reentrant=False)
+                    if remat else chunk_body(*args))
+
+        # on fake tensors (the dry-run) the chunk loop is folded
+        h, y = scan(body, h, u.shape[1] // cfg.chunk, stack=False,
+                    checkpointed=remat)
+        y = y[:, :S]
         y = y.to(x.dtype) + u[:, :S] * p["D"].to(x.dtype)
         new_state = {"conv": xin[:, -(cfg.d_conv - 1):, :], "ssm": None}
     else:

@@ -20,7 +20,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.nn import layers as L
-from repro_torch.nn.common import merge_heads, rows_local, shard, split_heads
+from repro_torch.nn.common import (count_body, merge_heads, rows_local, scan,
+                                   shard, split_heads)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,21 +47,23 @@ def _chunked_steps(step, carry: tuple, S: int, chunk: int,
     of ``chunk`` and longer than one chunk, each chunk of steps runs under a
     checkpoint, so the backward pass keeps one carry a chunk rather than
     every step's residuals: the reference's ``_chunked_scan``, with its
-    plain-loop fallback."""
-    def run(carry, t0: int, t1: int):
-        hs = []
-        for t in range(t0, t1):
-            carry, h = step(carry, t)
-            hs.append(h)
-        return carry, torch.stack(hs, 1)
+    plain-loop fallback.  On fake tensors (the dry-run) the loop over steps,
+    or over checkpointed chunks, is folded (:func:`common.scan`)."""
+    def run(carry, t0: int, t1: int, hold=None):
+        def body(carry, i, hold):
+            count_body()
+            return step(carry, t0 + i)
+
+        return scan(body, carry, t1 - t0, stack=True)
 
     if not remat or chunk <= 1 or S % chunk or S <= chunk:
         return run(carry, 0, S)
-    outs = []
-    for t0 in range(0, S, chunk):
-        carry, h = checkpoint(run, carry, t0, t0 + chunk, use_reentrant=False)
-        outs.append(h)
-    return carry, torch.cat(outs, 1)
+
+    def chunk_body(carry, c, hold):
+        return checkpoint(run, carry, c * chunk, (c + 1) * chunk, hold,
+                          use_reentrant=False)
+
+    return scan(chunk_body, carry, S // chunk, stack=False, checkpointed=True)
 
 
 # ---------------------------------------------------------------------------

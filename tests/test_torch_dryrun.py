@@ -12,6 +12,9 @@ there is none; the cases held against the reference skip there.
   * the counterpart of the reference's
     ``test_collective_parser_trip_count_multiplication``: a sharded layer
     run 24 times counts 24x its collective bytes;
+  * the folded recurrences of xlstm-125m and jamba (train and prefill on a
+    2 x 4 mesh at 6-8 chunks): memory and collectives exactly the stepped
+    run's, and as many bodies dispatched at twice the sequence;
   * llama3.2-3b's ``decode_32k`` cell at full size from the command line.
 
 The fake process group is global state of a process, so every lowering
@@ -191,6 +194,66 @@ def test_collective_count_multiplies_with_the_layers_run():
     for kind, n in one["counts"].items():
         assert many["counts"][kind] == 24 * n
         assert many[kind] == 24 * one[kind]
+
+
+_FOLD = textwrap.dedent("""
+    import dataclasses, json, sys
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch import dryrun as D
+    from repro_torch.nn import common as C
+
+    arch, kind, seq = sys.argv[1], sys.argv[2], int(sys.argv[3])
+    cfg = ARCHS[arch].smoke()
+    for sub in ("xlstm", "mamba"):
+        if getattr(cfg, sub) is not None:
+            cfg = dataclasses.replace(cfg, **{sub: dataclasses.replace(
+                getattr(cfg, sub), chunk=8)})
+    cfg = dataclasses.replace(cfg, remat=True)  # as the full configs
+
+    def run(fold, s):
+        C.FOLD, C.bodies = fold, 0
+        r = D.lower_cell(arch, kind, False, cfg=cfg, mesh_shape=(2, 4),
+                         shape={"seq": s, "batch": 8, "kind": kind})
+        return {"memory": r["memory"], "bytes": r["cost"]["collective_bytes"],
+                "counts": r["cost"]["collective_counts"],
+                "bodies": C.bodies, "accum": r.get("grad_accum")}
+
+    print(json.dumps({"stepped": run(False, seq), "folded": run(True, seq),
+                      "folded_2x": run(True, 2 * seq)}))
+""")
+# (arch, kind, seq): seq / 8 chunks of 8 tokens; 6 for jamba's train cell,
+# whose stepped run is the slowest (4 microbatches, 8 layers)
+FOLD_CELLS = [("xlstm-125m", "train", 64), ("xlstm-125m", "prefill", 64),
+              ("jamba-1.5-large-398b", "train", 48),
+              ("jamba-1.5-large-398b", "prefill", 64)]
+
+
+@pytest.fixture(scope="module")
+def folds():
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=4)
+    futures = {c: pool.submit(_run, _FOLD, c[0], c[1], str(c[2]),
+                              timeout=900) for c in FOLD_CELLS}
+    yield futures
+    pool.shutdown(wait=True)
+
+
+@pytest.mark.parametrize("cell", FOLD_CELLS, ids=lambda c: f"{c[0]}-{c[1]}")
+def test_folded_recurrence_equals_the_stepped_run(folds, cell):
+    """On fake tensors xLSTM's steps, Mamba's chunks and the microbatches
+    are folded (``nn/common.py::scan``): three bodies run and the rest are
+    allocated and counted.  Memory and collectives must equal the stepped
+    run's exactly, and the bodies dispatched must not grow with the
+    sequence (the stepped run's do)."""
+    r = folds[cell].result()
+    stepped, folded, longer = r["stepped"], r["folded"], r["folded_2x"]
+    assert folded["memory"] == stepped["memory"]
+    assert folded["counts"] == stepped["counts"]
+    assert folded["bytes"] == stepped["bytes"]
+    assert sum(stepped["counts"].values()) > 0
+    assert folded["bodies"] < stepped["bodies"]
+    assert longer["bodies"] == folded["bodies"]
+    if cell[1] == "train" and cell[0].startswith("jamba"):
+        assert stepped["accum"] == 4  # the microbatch fold is exercised
 
 
 def test_llama_decode_cell_at_full_size_from_the_command_line(tmp_path):

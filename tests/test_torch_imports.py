@@ -1,27 +1,35 @@
 """The port's boundary: ``repro_torch``, ``chip_smoke.py``, the port's
-examples (``examples/torch_*.py``), ``tools/train_phase.py``,
-``tools/lm_stack_phase.py``, ``tools/lm_train_phase.py`` and
-``tools/dist_phase.py`` use no JAX
-and nothing of the reference package ``repro``.
+examples (``examples/torch_*.py``, the six user examples among them) and
+the single-phase tools (``tools/{train,lm_stack,lm_train,dist,
+examples}_phase.py``) use no JAX and nothing of the reference package
+``repro``.
 
 Importing is checked in a fresh subprocess, because this test process has
 already imported JAX for the parity tests.
 """
 import ast
+import importlib.util
 import os
 import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+import torch
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 CHIP_SMOKE = ROOT / "chip_smoke.py"
+EXAMPLES = ["quickstart", "lvrf_ood", "engine_serving", "runtime_serving",
+            "fleet_overload", "tracing"]
 SCRIPTS = [CHIP_SMOKE, ROOT / "examples" / "torch_raven_abduction.py",
            ROOT / "examples" / "torch_mimonet_superposition.py",
+           *(ROOT / "examples" / f"torch_{name}.py" for name in EXAMPLES),
            ROOT / "tools" / "train_phase.py",
            ROOT / "tools" / "lm_stack_phase.py",
            ROOT / "tools" / "lm_train_phase.py",
-           ROOT / "tools" / "dist_phase.py"]
+           ROOT / "tools" / "dist_phase.py",
+           ROOT / "tools" / "examples_phase.py"]
 
 _IMPORT_ALL = """
 import importlib, importlib.util, pkgutil, sys
@@ -106,3 +114,16 @@ def test_no_source_of_the_port_imports_jax_or_the_reference():
         for name in _imported(path):
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), f"{path}: {name}"
+
+
+def test_an_example_asks_for_the_card_and_raises_without_one():
+    """The examples default to the card and raise where there is none, before
+    any work (``device.resolve``)."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    path = ROOT / "examples" / "torch_quickstart.py"
+    spec = importlib.util.spec_from_file_location("torch_quickstart", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with pytest.raises(RuntimeError, match="cuda"):
+        mod.main(device="cuda")
