@@ -44,6 +44,7 @@ one entry per data shard, and every cross-shard sum is one
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Literal, NamedTuple
 
@@ -258,6 +259,21 @@ def _active(cfg: FactorizerConfig, s: _State) -> torch.Tensor:
     return torch.logical_and(~s.done, s.iters < cfg.max_iters)
 
 
+_NO_SPAN = contextlib.nullcontext()  # reusable; yields None
+
+
+def _no_span(name: str):
+    """The span factory of an untraced resonator: records nothing."""
+    return _NO_SPAN
+
+
+def _fft_plans(device: torch.device) -> int | None:
+    """Plans in cuFFT's plan cache of ``device``; None off the card."""
+    if device.type != "cuda":
+        return None
+    return torch.backends.cuda.cufft_plan_cache[device.index].size
+
+
 def _noise(s: _State, tag: int, F: int, n: int, std: float):
     """Per factor, standard normals [N, n] of stream ``tag`` at each row's
     own sweep index; F Nones where ``std`` is 0."""
@@ -267,10 +283,11 @@ def _noise(s: _State, tag: int, F: int, n: int, std: float):
 
 
 def _settle(cfg: FactorizerConfig, qs, s: _State, alpha, est,
-            atoms) -> _State:
+            atoms, span=_no_span) -> _State:
     """The end of a sweep, shared by both modes: do the hard-decoded atoms
     ``atoms`` [N, F, D] reconstruct each query?  Then freeze converged and
-    budget-exhausted rows, and restart stuck ones."""
+    budget-exhausted rows, and restart stuck ones (in a ``restart`` span of
+    the factory ``span``; see :func:`make_resonator`)."""
     sim = vsa.similarity(vsa.bind_all(atoms, cfg.vsa, axis=-2), qs)  # [N]
     act = _active(cfg, s)
     # Freeze converged / budget-exhausted queries: est/sim/iters stop.
@@ -282,9 +299,15 @@ def _settle(cfg: FactorizerConfig, qs, s: _State, alpha, est,
         do_restart = act & ~done & (iters % cfg.restart_every == 0)
         rows = torch.nonzero(do_restart).squeeze(1)  # one host sync
         if rows.numel():
-            F, D = est.shape[1:]
-            z = rng.normal(s.keys[rows], iters[rows], rng.RESTART, F, D)
-            est[rows] = _norm(z, cfg)  # est is this sweep's own tensor
+            with span("restart") as sp:
+                plans = None if sp is None else _fft_plans(est.device)
+                F, D = est.shape[1:]
+                z = rng.normal(s.keys[rows], iters[rows], rng.RESTART, F, D)
+                est[rows] = _norm(z, cfg)  # est is this sweep's own tensor
+                if sp is not None:
+                    sp.args["rows"] = rows.numel()
+                    if plans is not None:
+                        sp.args["fft_plans"] = _fft_plans(est.device) - plans
     return _State(est, iters, done, sim, s.keys, s.it + 1)
 
 
@@ -322,7 +345,7 @@ def make_resonator(codebooks, cfg: FactorizerConfig,
                    valid_mask: torch.Tensor | None = None, *,
                    model_axis=None, full_rows: int | None = None,
                    init_est: torch.Tensor | None = None,
-                   fused=None) -> Resonator:
+                   fused=None, span=None) -> Resonator:
     """Build the sweep machinery for one codebook set (see :class:`Resonator`).
 
     A query row freezes once it converges (``done``) or exhausts its
@@ -357,6 +380,16 @@ def make_resonator(codebooks, cfg: FactorizerConfig,
     atom rows with one more (one-hot) reduction.  A fused-eligible config
     runs one ``fused_resonator_step_batch_local`` launch per shard per
     sweep, then the same F packed reductions.
+
+    ``span`` is an optional span factory, ``span(name)`` giving a context
+    manager that yields the live span or None (the Engine's, over its
+    ``obs`` recorder).  The plain stepwise sweep then records, inside it,
+    ``rng`` (the sweep's noise draws, where it draws any),
+    ``factor-update`` (arg ``factor``) for each factor, and ``settle``
+    with ``restart`` inside it on sweeps where rows restart (args ``rows``
+    and, on the card, ``fft_plans``: the plans cuFFT's plan cache gained).
+    The fused and model-sharded sweeps record none.  Without it nothing is
+    recorded.
     """
     if cfg.max_iters >= rng.MAX_SWEEP:
         raise ValueError(f"max_iters={cfg.max_iters} exceeds the noise "
@@ -382,34 +415,40 @@ def make_resonator(codebooks, cfg: FactorizerConfig,
     init_est = init_est.to(dev)
     use_fused = fused_sweep_eligible(cfg) and not quantized
     factor_ids = torch.arange(F, device=dev)
+    span = span or _no_span
+    draws = bool(cfg.noise_std or cfg.proj_noise_std)
 
     def factor_update(qs, i: int, est: torch.Tensor, z_sim, z_proj):
         """One factor's unbind -> score -> project update for the whole batch;
         ``z_sim`` [N, M] / ``z_proj`` [N, D] are this factor's standard
         normals (None without that noise).  Returns (alpha_i [N, M],
         new_est_i [N, D])."""
-        unbound = _unbind(qs, est, cfg, factor=i)  # [N, D]      (Step 1)
-        if use_int8_kernel:  # the similarity_int8 kernel on the card
-            from repro_torch.kernels.similarity import ops as sim_ops
+        with span("factor-update") as sp:
+            if sp is not None:
+                sp.args["factor"] = i
+            unbound = _unbind(qs, est, cfg, factor=i)  # [N, D]      (Step 1)
+            if use_int8_kernel:  # the similarity_int8 kernel on the card
+                from repro_torch.kernels.similarity import ops as sim_ops
 
-            alpha = sim_ops.codebook_scores(unbound, codebooks[i])
-        elif quantized:
-            alpha = quantized_matvec(unbound, codebooks[i])
-        else:
-            alpha = unbound @ dense_cb[i].T
-        alpha = torch.where(valid_mask[i], alpha, neg)  #        (Step 2)
-        if z_sim is not None:  # stochasticity, relative to score spread
-            sigma = cfg.noise_std * torch.std(
-                torch.where(valid_mask[i], alpha, 0.0), dim=-1, keepdim=True,
-                correction=0)
-            alpha = torch.where(valid_mask[i], alpha + sigma * z_sim, alpha)
-        w = _activation(alpha, cfg) * valid_mask[i]
-        new_est = w @ dense_cb[i]  #                             (Step 3)
-        if z_proj is not None:
-            sigma = cfg.proj_noise_std * torch.std(new_est, dim=-1,
-                                                   keepdim=True, correction=0)
-            new_est = new_est + sigma * z_proj
-        return alpha, _norm(new_est, cfg)
+                alpha = sim_ops.codebook_scores(unbound, codebooks[i])
+            elif quantized:
+                alpha = quantized_matvec(unbound, codebooks[i])
+            else:
+                alpha = unbound @ dense_cb[i].T
+            alpha = torch.where(valid_mask[i], alpha, neg)  #        (Step 2)
+            if z_sim is not None:  # stochasticity, relative to score spread
+                sigma = cfg.noise_std * torch.std(
+                    torch.where(valid_mask[i], alpha, 0.0), dim=-1,
+                    keepdim=True, correction=0)
+                alpha = torch.where(valid_mask[i], alpha + sigma * z_sim,
+                                    alpha)
+            w = _activation(alpha, cfg) * valid_mask[i]
+            new_est = w @ dense_cb[i]  #                             (Step 3)
+            if z_proj is not None:
+                sigma = cfg.proj_noise_std * torch.std(
+                    new_est, dim=-1, keepdim=True, correction=0)
+                new_est = new_est + sigma * z_proj
+            return alpha, _norm(new_est, cfg)
 
     def active(s: _State) -> torch.Tensor:
         return _active(cfg, s)
@@ -427,8 +466,9 @@ def make_resonator(codebooks, cfg: FactorizerConfig,
                     qs, est, dense_cb, valid_mask, activation=cfg.activation,
                     fused=fused)
         else:
-            z_sim = _noise(s, rng.SCORES, F, M, cfg.noise_std)
-            z_proj = _noise(s, rng.PROJECTION, F, D, cfg.proj_noise_std)
+            with span("rng") if draws else _NO_SPAN:
+                z_sim = _noise(s, rng.SCORES, F, M, cfg.noise_std)
+                z_proj = _noise(s, rng.PROJECTION, F, D, cfg.proj_noise_std)
             if cfg.synchronous:  # Jacobi: all factors from the same snapshot
                 outs = [factor_update(qs, i, est, z_sim[i], z_proj[i])
                         for i in range(F)]
@@ -443,7 +483,11 @@ def make_resonator(codebooks, cfg: FactorizerConfig,
                     alphas.append(alpha_i)
                 alpha = torch.stack(alphas, dim=1)
         idx = torch.argmax(alpha, dim=-1)  # [N, F] first maximum on ties
-        return _settle(cfg, qs, s, alpha, est, dense_cb[factor_ids, idx])
+        atoms = dense_cb[factor_ids, idx]
+        if use_fused:
+            return _settle(cfg, qs, s, alpha, est, atoms)
+        with span("settle"):
+            return _settle(cfg, qs, s, alpha, est, atoms, span)
 
     def init(qs, keys) -> _State:
         return _init_state(init_est, qs, keys)

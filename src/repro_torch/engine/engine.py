@@ -185,7 +185,7 @@ class Engine:
         resonator shard by shard)."""
         spec, slots = self.spec, self.slots
         rs = fz.make_resonator(spec.codebooks, spec.cfg, spec.valid_mask,
-                               fused=self.fused)
+                               fused=self.fused, span=self._sweep_span)
         self.qs = torch.zeros((slots, spec.dim), dtype=torch.float32,
                               device=self.device)
         st = rs.init(self.qs, torch.zeros((slots, 2), dtype=torch.int64))
@@ -206,6 +206,12 @@ class Engine:
         self._refill_many = rs.refill_many
         self._decode = rs.decode
         self._record_structure()
+
+    def _sweep_span(self, name: str):
+        """The resonator's span factory: a span on this engine's track of
+        whatever recorder the engine holds when the sweep runs (``bind_obs``
+        may swap it after the programs are built)."""
+        return self.obs.span(name, track=self.obs_track, cat="sweep")
 
     def _psums_per_sweep(self) -> int:
         """Cross-shard reductions ONE sweep issues (0 on one device; the
@@ -300,13 +306,19 @@ class Engine:
         return item
 
     def _fill(self) -> None:
-        fills = []
-        for slot in range(self.slots):
-            if self._owner[slot] is not None or not self._queue:
-                continue
-            req, qi = self._pop_next()
-            self._owner[slot] = (req, qi)
-            fills.append((slot, req.queries[qi], req.keys[qi]))
+        with self.obs.span("slot-scan", track=self.obs_track,
+                           cat="engine") as sp:
+            if sp is not None:
+                sp.args["queued"] = len(self._queue)
+            fills = []
+            for slot in range(self.slots):
+                if self._owner[slot] is not None or not self._queue:
+                    continue
+                req, qi = self._pop_next()
+                self._owner[slot] = (req, qi)
+                fills.append((slot, req.queries[qi], req.keys[qi]))
+            if sp is not None:
+                sp.args["rows"] = len(fills)
         if not fills:
             return
         with self.obs.span("fill", track=self.obs_track, cat="engine",
@@ -332,16 +344,18 @@ class Engine:
                 and (done[s] or iters[s] >= budget(self._owner[s][0]))]
         if not ripe:
             return []
-        res = fz.FactorizerResult(*(t.cpu().numpy() for t in
-                                    self._decode(self.qs, self.state)))
+        with self.obs.span("decode", track=self.obs_track, cat="engine"):
+            res = fz.FactorizerResult(*(t.cpu().numpy() for t in
+                                        self._decode(self.qs, self.state)))
         finished = []
-        for s in ripe:
-            req, qi = self._owner[s]
-            self._owner[s] = None
-            req.rows[qi] = fz.FactorizerResult(*(a[s] for a in res))
-            if all(r is not None for r in req.rows):
-                self._finalize(req)
-                finished.append(req)
+        with self.obs.span("finalize", track=self.obs_track, cat="engine"):
+            for s in ripe:
+                req, qi = self._owner[s]
+                self._owner[s] = None
+                req.rows[qi] = fz.FactorizerResult(*(a[s] for a in res))
+                if all(r is not None for r in req.rows):
+                    self._finalize(req)
+                    finished.append(req)
         return finished
 
     def _finalize(self, req: Request) -> None:
@@ -350,8 +364,13 @@ class Engine:
         req.iterations = req.factorization.iterations
         req.done_time = self._clock()
         req.done_sweep = self.sweeps_total
-        req.result = req.factorization if self.spec.postprocess is None else \
-            self.spec.postprocess(req.queries, req.factorization, req.meta)
+        if self.spec.postprocess is None:
+            req.result = req.factorization
+        else:
+            with self.obs.span("postprocess", track=self.obs_track,
+                               cat="engine"):
+                req.result = self.spec.postprocess(req.queries,
+                                                   req.factorization, req.meta)
         self.completed[req.id] = req
         self.completed_total += 1
         self._lat_sum += req.latency_s
