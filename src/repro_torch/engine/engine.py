@@ -16,7 +16,7 @@ model and picks the sweep burst that fits the neural overlap window.
 from __future__ import annotations
 
 import dataclasses
-from collections import deque
+import heapq
 from typing import Any
 
 import numpy as np
@@ -160,7 +160,9 @@ class Engine:
         self._gen = as_generator(0 if generator is None else generator)
         self._build_programs()
         self._owner: list = [None] * slots  # (request, query_index) | None
-        self._queue: deque = deque()
+        # Queued rows as a heap of (priority, id, qi, request): the key is
+        # unique to a row, so a comparison never reaches the request.
+        self._queue: list = []
         self._next_id = 0
         self.completed: dict = {}
         self.sweeps_total = 0
@@ -286,24 +288,22 @@ class Engine:
         req.rows = [None] * k
         self._next_id += 1
         for qi in range(k):
-            self._queue.append((req, qi))
+            self._requeue(req, qi)
         self.obs.count("submitted", 1, engine=self.obs_track)
         return req.id
 
     # -- serving loop ------------------------------------------------------
 
+    def _requeue(self, req: Request, qi: int) -> None:
+        heapq.heappush(self._queue, (req.priority, req.id, qi, req))
+
     def _pop_next(self):
         """Queue discipline: lowest ``(priority, id, qi)`` first (exact FIFO
         under uniform priorities; a re-queued row resumes ahead of
-        same-priority newcomers)."""
-        best_i, best = 0, None
-        for i, (req, qi) in enumerate(self._queue):
-            k = (req.priority, req.id, qi)
-            if best is None or k < best:
-                best_i, best = i, k
-        item = self._queue[best_i]
-        del self._queue[best_i]
-        return item
+        same-priority newcomers, whose ids are newer).  Returns
+        ``(request, query_index)``."""
+        _, _, qi, req = heapq.heappop(self._queue)
+        return req, qi
 
     def _fill(self) -> None:
         with self.obs.span("slot-scan", track=self.obs_track,
@@ -422,10 +422,10 @@ class Engine:
         In-flight slot rows move into the new state verbatim (est / iters /
         done / sim / keys), so a live request's remaining trajectory is the
         one it would have run in the old state.  When shrinking below the
-        live-row count, the overflow rows go back to the *front* of the
-        queue and re-run from scratch once a slot frees: wasted sweeps, but
-        the same trajectory.  The sweep burst is re-derived unless the
-        constructor pinned it.
+        live-row count, the overflow rows go back to the queue, ahead of
+        same-priority newcomers, and re-run from scratch once a slot frees:
+        wasted sweeps, but the same trajectory.  The sweep burst is
+        re-derived unless the constructor pinned it.
         """
         if slots < 1:
             raise ValueError(f"resize needs at least 1 slot, got {slots}")
@@ -436,8 +436,8 @@ class Engine:
         live = [(s, self._owner[s]) for s in range(self.slots)
                 if self._owner[s] is not None]
         keep, overflow = live[:slots], live[slots:]
-        for _, owner in reversed(overflow):  # preserve original order up front
-            self._queue.appendleft(owner)
+        for _, owner in overflow:
+            self._requeue(*owner)
         old_qs, old_state = self.qs, self.state
         self.slots = slots
         if not self._sweeps_pinned:
@@ -466,16 +466,17 @@ class Engine:
         number of replayed (request, query) rows.
 
         The slot state is rebuilt from scratch (whatever the fault left
-        behind is discarded) and every live slot row goes back to the FRONT
-        of the queue in its original submission order, to re-run from its
-        pinned key: the recovered trajectory equals a fault-free run's.
+        behind is discarded) and every live slot row goes back to the queue
+        ahead of same-priority newcomers, in its original submission order,
+        to re-run from its pinned key: the recovered trajectory equals a
+        fault-free run's.
         """
         with self.obs.span("recover", track=self.obs_track,
                            cat="engine") as sp:
             live = [(s, self._owner[s]) for s in range(self.slots)
                     if self._owner[s] is not None]
-            for _, owner in reversed(live):  # submission order kept up front
-                self._queue.appendleft(owner)
+            for _, owner in live:
+                self._requeue(*owner)
             self._build_programs()
             self._owner = [None] * self.slots
             self.recoveries_total += 1
@@ -489,17 +490,17 @@ class Engine:
         self.state = self.state._replace(done=done)
 
     def preempt(self, request_id: int) -> int:
-        """Park ``request_id``'s live slot rows and RE-QUEUE them at the
-        front; they re-run from scratch off their pinned keys once a slot
-        frees, so the trajectory equals an undisturbed run's.  Returns the
-        number of rows re-queued."""
+        """Park ``request_id``'s live slot rows and RE-QUEUE them ahead of
+        same-priority newcomers; they re-run from scratch off their pinned
+        keys once a slot frees, so the trajectory equals an undisturbed
+        run's.  Returns the number of rows re-queued."""
         parked = [s for s in range(self.slots)
                   if self._owner[s] is not None
                   and self._owner[s][0].id == request_id]
         if not parked:
             return 0
-        for s in reversed(parked):  # keep row order at the queue front
-            self._queue.appendleft(self._owner[s])
+        for s in parked:
+            self._requeue(*self._owner[s])
             self._owner[s] = None
         self._park(parked)
         self.obs.instant("preempt", track=self.obs_track, cat="engine",
@@ -511,8 +512,8 @@ class Engine:
         live slots.  Other rows' trajectories are untouched.  Returns
         whether anything was reclaimed (False for unknown/completed ids)."""
         before = len(self._queue)
-        self._queue = deque((req, qi) for req, qi in self._queue
-                            if req.id != request_id)
+        self._queue = [e for e in self._queue if e[1] != request_id]
+        heapq.heapify(self._queue)
         reclaimed = len(self._queue) < before
         parked = [s for s in range(self.slots)
                   if self._owner[s] is not None
@@ -559,7 +560,7 @@ class Engine:
     def queued_requests(self) -> dict:
         """``{request_id: {"priority": p, "rows": n}}`` for queued rows."""
         out: dict = {}
-        for req, _ in self._queue:
+        for *_, req in self._queue:
             d = out.setdefault(req.id,
                                {"priority": req.priority, "rows": 0})
             d["rows"] += 1
