@@ -40,7 +40,9 @@ port from the checkout's sources (into ``build/kernels/``), then:
      boundaries of 2, 4 and 8 blocks a cluster, and at the other configs'
      head shapes (Granite rep 3 dh 64; starcoder2 rep 12, rep 10 and rep 16
      on the tensor-core kernel, one launch each), bf16 and int8 pools
-     (2e-5);
+     (2e-5); then with a sliding window (phase 11b: Mellum2's sliding
+     layers, rep 8 and a window of 1024, and a window of 1000 at rep 8
+     and rep 12, every split count);
  12. serves Llama 3.2 3B at full width (28 layers, d 3072, GQA 24/8, vocab
      128256; random bf16 weights drawn on the card) through
      ``LMEngine(slots=32, paged bs 16, chunk 64)``: 64 greedy requests of
@@ -991,6 +993,60 @@ def phase_flash_decode(torch, dev, fd):
                   f"bs={LM_BLOCK} W={width}: max |kernel - plain| {d:.3g} "
                   f"(split count chosen and 8)", flush=True)
     return err
+
+
+# Sliding-window flash_decode (phase 11b): Mellum2-12B-A2.5B's sliding
+# layers (G 4, rep 8, window 1024 over 4096 positions), and a window that
+# does not divide the block on both kernels (rep 8 and rep 12).
+FD_WINDOW_CASES = ((4, 8, 1024), (4, 8, 1000), (2, 12, 1000))
+FD_WINDOW_TABLE = 256  # blocks of 16 a row: 4096 positions
+
+
+def phase_flash_decode_window(torch, dev, fd):
+    """flash_decode with a sliding window against its plain version on the
+    card (bf16 and int8 pools, the split count chosen and each forced one):
+    rows shorter than, at and past the window and at the full table.
+    Returns the max |kernel - plain|."""
+    import numpy as np
+
+    from repro_torch.kernels.flash_decode import kernel as fdk
+
+    worst = 0.0
+    cap = LM_BLOCK * FD_WINDOW_TABLE
+    for g, rep, window in FD_WINDOW_CASES:
+        lens = [0, 1, 17, window - 1, window, window + 1, window + 17,
+                2 * window + 5, cap - 1, cap]
+        lens += np.random.default_rng(window + rep).integers(
+            1, cap + 1, LM_SLOTS - len(lens)).tolist()
+        kv_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+        for kv in ("bf16", "int8"):
+            q, pool, table = fd_inputs(torch, LM_SLOTS, g, rep, 128, LM_BLOCK,
+                                       FD_WINDOW_TABLE, kv, window + rep, dev,
+                                       128 ** -0.5)
+            ks, vs = pool.get("k_scale"), pool.get("v_scale")
+            want = fd.flash_decode_plain(q, pool["k"], pool["v"], table,
+                                         kv_lens, ks, vs, window)
+            for splits in (None, 1, 2, 4, 8):
+                before = fd.launches
+                got = fdk.flash_decode(q, pool["k"], pool["v"], table, kv_lens,
+                                       k_scale=ks, v_scale=vs, window=window,
+                                       splits=splits)
+                torch.cuda.synchronize()
+                if fd.launches != before + 1:
+                    raise AssertionError("phase 11b: not one launch")
+                diff = (got - want).abs()
+                worst = max(worst, diff.max().item())
+                if not bool((diff <= FD_ATOL + FD_RTOL * want.abs()).all()):
+                    raise AssertionError(
+                        f"phase 11b: flash_decode ({kv}) at G={g} rep={rep} "
+                        f"window {window}, splits {splits}: max |kernel - "
+                        f"plain| {diff.max().item()}")
+        print(f"phase 11b: flash_decode with a window of {window} at B="
+              f"{LM_SLOTS} G={g} rep={rep} dh=128 bs={LM_BLOCK} W="
+              f"{FD_WINDOW_TABLE}, bf16 and int8 pools, the split count "
+              f"chosen and 1, 2, 4, 8: within atol {FD_ATOL}, rtol {FD_RTOL} "
+              f"of its plain version (max so far {worst:.3g})", flush=True)
+    return worst
 
 
 def lm_prompts(n, vocab, seed=31, lens=LM_PROMPTS):
@@ -4726,6 +4782,7 @@ def main() -> int:
     phase_rng(torch, dev, card)
     sim_times = phase_sim_timing(torch, dev, sim, card)
     fd_err = phase_flash_decode(torch, dev, fd)
+    phase_flash_decode_window(torch, dev, fd)
     fd_launches, fd_lens = phase_lm_serving(torch, dev, fd, card)
     fd_times = phase_fd_timing(torch, dev, fd, fd_lens, card)
     local_err = phase_local_kernel(rs, ref, torch, dev)

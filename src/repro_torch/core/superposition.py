@@ -75,7 +75,8 @@ def mimo_lm_logits(model, cfg, tokens: torch.Tensor, keys: torch.Tensor,
     positions = torch.arange(Tlen, device=x.device)[None].expand(N, Tlen)
     with torch.no_grad():
         for i, blk in enumerate(model.blocks):
-            x, _ = T._apply_block(blk, cfg.kind(i), cfg, x, positions, None)
+            x, _ = T._apply_block(blk, cfg.kind(i), cfg, x, positions,
+                                  None, i)
         x = T._norm(cfg, model.final_ln, x)
     per_stream = unbind_hidden(x, keys, blocks)  # [N, S_str, T, d]
     head = model.head.to(cfg.activ_dtype)

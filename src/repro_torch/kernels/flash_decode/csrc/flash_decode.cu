@@ -30,9 +30,11 @@
 //   * Split-KV over a thread-block cluster.  The grid is (S, G, B) with
 //     cluster dims (S, 1, 1), S in 1..8 chosen on the host from static
 //     shapes (kernel.py: split_count).  Block `rank` of the (row, KV head)
-//     cluster takes positions [rank * c, min((rank + 1) * c, len)), c =
-//     ceil(len / S) rounded up to a warp's batch (kernel.py: tile), so a
-//     long row is spread over S SMs.
+//     cluster takes positions [lo + rank * c, min(lo + (rank + 1) * c,
+//     len)), c = ceil((len - lo) / S) rounded up to a warp's batch
+//     (kernel.py: tile), so a long row is spread over S SMs; lo is 0, or
+//     max(0, len - window) under a sliding window, whose earlier positions
+//     are neither read nor counted.
 //   * The block stages the pool row of each of its positions in shared
 //     memory once (kRowsMax at a time): no K/V load waits on a table read,
 //     and a block id outside the pool is masked there.
@@ -247,7 +249,7 @@ flash_decode_kernel(const float* __restrict__ q,        // [B, G, rep, DH]
                     const int* __restrict__ table,      // [B, W]
                     const int* __restrict__ kv_lens,    // [B]
                     float* __restrict__ out,            // [B, G, rep, DH]
-                    int G, int nbp, int bs, int W) {
+                    int G, int nbp, int bs, int W, int window) {
   using C = typename Chunk<QUANT>::T;
   using Sh = Shape<DH, REP, QUANT>;
   constexpr int kLanesPerRow = Sh::kLanesPerRow;
@@ -275,11 +277,13 @@ flash_decode_kernel(const float* __restrict__ q,        // [B, G, rep, DH]
   const int slot = lane / kLanesPerRow, c = lane % kLanesPerRow;
   unsigned char* own = ring + warp * Sh::kWarpRing;  // this warp's
 
-  // This rank's positions [start, end) of the row's live window.
+  // This rank's positions [start, end) of the row's live window: its
+  // positions [lo, len), the last `window` of them where window > 0.
   const int len = max(0, min(kv_lens[b], W * bs));
-  const long long share = len / splits + (len % splits != 0);
+  const int lo = window > 0 ? max(0, len - window) : 0;
+  const long long share = (len - lo) / splits + ((len - lo) % splits != 0);
   const long long per = (share + kBatch - 1) / kBatch * kBatch;
-  const int start = (int)min((long long)len, rank * per);
+  const int start = lo + (int)min((long long)(len - lo), rank * per);
   const int end = (int)min((long long)len, start + per);
 
   float qr[REP][kVals];
@@ -551,7 +555,7 @@ flash_decode_kernel(const float* __restrict__ q,        // [B, G, rep, DH]
 template <int DH, int REP, bool QUANT>
 int launch(const float* q, const void* k, const void* v, const float* ks,
            const float* vs, const int* table, const int* lens, float* out,
-           int B, int G, int nbp, int bs, int W, int splits,
+           int B, int G, int nbp, int bs, int W, int splits, int window,
            cudaStream_t stream) {
   constexpr int kRing = Shape<DH, REP, QUANT>::kRing;
   const cudaError_t set = cudaFuncSetAttribute(
@@ -572,7 +576,7 @@ int launch(const float* q, const void* k, const void* v, const float* ks,
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, flash_decode_kernel<DH, REP, QUANT>, q, k, v, ks, vs, table,
-      lens, out, G, nbp, bs, W);
+      lens, out, G, nbp, bs, W, window);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -741,7 +745,8 @@ flash_decode_wide_kernel(const float* __restrict__ q,        // [B, G, rep, DH]
                          const int* __restrict__ table,      // [B, W]
                          const int* __restrict__ kv_lens,    // [B]
                          float* __restrict__ out,            // [B, G, rep, DH]
-                         int G, int rep, int nbp, int bs, int W) {
+                         int G, int rep, int nbp, int bs, int W,
+                         int window) {
   using Sh = Wide<DH, QUANT>;
   constexpr int kCW = Sh::kCW, kCV = Sh::kCV, kNT = Sh::kNT;
   constexpr int kEsz = Sh::kEsz, kStages = Sh::kStages;
@@ -775,9 +780,10 @@ flash_decode_wide_kernel(const float* __restrict__ q,        // [B, G, rep, DH]
     cp_async<4>(tab_s + i, table + (size_t)b * W + i, 4);
   cp_async_commit();
   const int len = max(0, min(kv_lens[b], W * bs));
-  const long long share = len / splits + (len % splits != 0);
+  const int lo = window > 0 ? max(0, len - window) : 0;
+  const long long share = (len - lo) / splits + ((len - lo) % splits != 0);
   const long long per = (share + kWideTile - 1) / kWideTile * kWideTile;
-  const int start = (int)min((long long)len, rank * per);
+  const int start = lo + (int)min((long long)(len - lo), rank * per);
   const int end = (int)min((long long)len, start + per);
   cp_async_wait<0>();
   __syncthreads();
@@ -1107,14 +1113,15 @@ template <int DH, bool QUANT>
 int launch_wide(const float* q, const void* k, const void* v, const float* ks,
                 const float* vs, const int* table, const int* lens, float* out,
                 int B, int G, int rep, int nbp, int bs, int W, int splits,
-                cudaStream_t stream) {
+                int window, cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t err = wide_config<DH, QUANT>(&cfg, &attr, splits, G, B);
   if (err != cudaSuccess) return (int)err;
   cfg.stream = stream;
   err = cudaLaunchKernelEx(&cfg, flash_decode_wide_kernel<DH, QUANT>, q, k, v,
-                           ks, vs, table, lens, out, G, rep, nbp, bs, W);
+                           ks, vs, table, lens, out, G, rep, nbp, bs, W,
+                           window);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -1123,18 +1130,18 @@ template <int DH, bool QUANT>
 int launch_rep(const float* q, const void* k, const void* v, const float* ks,
                const float* vs, const int* table, const int* lens, float* out,
                int B, int G, int rep, int nbp, int bs, int W, int splits,
-               cudaStream_t s) {
+               int window, cudaStream_t s) {
 #define FD_REP(R)                                                            \
   case R:                                                                    \
     return launch<DH, R, QUANT>(q, k, v, ks, vs, table, lens, out, B, G, nbp, \
-                                bs, W, splits, s);
+                                bs, W, splits, window, s);
   switch (rep) {
     FD_REP(1) FD_REP(2) FD_REP(3) FD_REP(4)
     FD_REP(5) FD_REP(6) FD_REP(7) FD_REP(8)
     default:
       if (rep >= kWideMinRep && rep <= kMaxRep)
         return launch_wide<DH, QUANT>(q, k, v, ks, vs, table, lens, out, B, G,
-                                      rep, nbp, bs, W, splits, s);
+                                      rep, nbp, bs, W, splits, window, s);
       return (int)cudaErrorInvalidValue;
   }
 #undef FD_REP
@@ -1144,12 +1151,12 @@ template <int DH>
 int launch_dh(const float* q, const void* k, const void* v, const float* ks,
               const float* vs, const int* table, const int* lens, float* out,
               int B, int G, int rep, int nbp, int bs, int W, int splits,
-              bool quant, cudaStream_t s) {
+              int window, bool quant, cudaStream_t s) {
   if (quant)
     return launch_rep<DH, true>(q, k, v, ks, vs, table, lens, out, B, G, rep,
-                                nbp, bs, W, splits, s);
+                                nbp, bs, W, splits, window, s);
   return launch_rep<DH, false>(q, k, v, ks, vs, table, lens, out, B, G, rep,
-                               nbp, bs, W, splits, s);
+                               nbp, bs, W, splits, window, s);
 }
 
 }  // namespace
@@ -1161,7 +1168,9 @@ extern "C" {
 // CUDA cores, 9..16 on the tensor cores); splits 1..8;
 // the pools 16-byte aligned; k_scale / v_scale are read only when
 // quant != 0.  nbp is the number of physical blocks: a table id outside
-// [0, nbp) is masked like a position past kv_lens, never read.  Returns
+// [0, nbp) is masked like a position past kv_lens, never read.  window > 0
+// keeps a row's last `window` live positions (a sliding window): those
+// below kv_lens - window are neither read nor counted.  Returns
 // cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for a shape the kernel lacks.
 int flash_decode_launch(const float* q, const void* k_pool,
@@ -1169,7 +1178,7 @@ int flash_decode_launch(const float* q, const void* k_pool,
                         const float* v_scale, const int* table,
                         const int* kv_lens, float* out, int B, int G, int rep,
                         int nbp, int bs, int W, int dh, int quant, int splits,
-                        void* stream) {
+                        int window, void* stream) {
   if (rep < 1 || rep > kMaxRep || splits < 1 || splits > kMaxSplits)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1177,17 +1186,20 @@ int flash_decode_launch(const float* q, const void* k_pool,
   switch (dh) {
     case 16:
       return launch_dh<16>(q, k_pool, v_pool, k_scale, v_scale, table,
-                           kv_lens, out, B, G, rep, nbp, bs, W, splits, qt, s);
+                           kv_lens, out, B, G, rep, nbp, bs, W, splits, window,
+                           qt, s);
     case 32:
       return launch_dh<32>(q, k_pool, v_pool, k_scale, v_scale, table,
-                           kv_lens, out, B, G, rep, nbp, bs, W, splits, qt, s);
+                           kv_lens, out, B, G, rep, nbp, bs, W, splits, window,
+                           qt, s);
     case 64:
       return launch_dh<64>(q, k_pool, v_pool, k_scale, v_scale, table,
-                           kv_lens, out, B, G, rep, nbp, bs, W, splits, qt, s);
+                           kv_lens, out, B, G, rep, nbp, bs, W, splits, window,
+                           qt, s);
     case 128:
       return launch_dh<128>(q, k_pool, v_pool, k_scale, v_scale, table,
-                            kv_lens, out, B, G, rep, nbp, bs, W, splits, qt,
-                            s);
+                            kv_lens, out, B, G, rep, nbp, bs, W, splits,
+                            window, qt, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -84,12 +84,16 @@ def launch_rep(rep: int) -> int:
     return rep
 
 
-def split_range(length: int, splits: int, rank: int, span: int) -> tuple:
+def split_range(length: int, splits: int, rank: int, span: int,
+                window: int = 0) -> tuple:
     """Positions ``[start, end)`` that block ``rank`` of a cluster of
-    ``splits`` takes of a row of ``length`` live positions."""
-    share = -(-length // splits)
+    ``splits`` takes of a row of ``length`` live positions, of which a
+    ``window`` (0: none) keeps the last ``window``: the splits share
+    ``[max(0, length - window), length)``."""
+    lo = max(0, length - window) if window > 0 else 0
+    share = -(-(length - lo) // splits)
     per = -(-share // span) * span
-    start = min(length, rank * per)
+    start = lo + min(length - lo, rank * per)
     return start, min(length, start + per)
 
 
@@ -115,7 +119,8 @@ def _lib() -> ctypes.CDLL:
     fn = lib.flash_decode_launch
     if fn.argtypes is None:  # first use in this process
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i,
+                       p]
         fn.restype = ctypes.c_int
         lib.flash_decode_wide_occupancy.argtypes = [i, i, i, p, p]
         lib.flash_decode_wide_occupancy.restype = ctypes.c_int
@@ -165,6 +170,7 @@ def flash_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                  table: torch.Tensor, kv_lens: torch.Tensor, *,
                  k_scale: torch.Tensor | None = None,
                  v_scale: torch.Tensor | None = None,
+                 window: int | None = None,
                  splits: int | None = None) -> torch.Tensor:
     """Paged online-softmax decode attention (shapes in :mod:`.ref`):
     q [B, G, rep, dh] fp32; k/v pool [NBP, bs, G, dh] bf16 or int8 (with
@@ -172,7 +178,9 @@ def flash_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     -> [B, G, rep, dh] fp32, on q's device and current stream.
 
     ``kv_lens`` is clamped to [0, W * bs] in the kernel, and a block id
-    outside [0, NBP) in a row's live window is masked, never read.
+    outside [0, NBP) in a row's live window is masked, never read.  With a
+    ``window``, a row's positions below ``kv_lens - window`` are neither
+    read nor counted, and the splits share the rest (:func:`split_range`).
     ``splits`` (1..MAX_SPLITS) overrides :func:`split_count`'s choice of
     blocks per (row, KV head).  One launch and one allocation, the output,
     at every rep."""
@@ -210,6 +218,8 @@ def flash_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                          f"B={B} G={G} bs={bs} W={W} NBP={nbp}")
     if G > _GRID_Y:
         raise ValueError(f"{G} KV heads; the grid takes at most {_GRID_Y}")
+    if window is not None and not 1 <= window <= 2 ** 31 - 1:
+        raise ValueError(f"window {window} not in 1..2**31-1")
     if splits is not None and not 1 <= splits <= MAX_SPLITS:
         raise ValueError(f"splits {splits} not in 1..{MAX_SPLITS}")
     if nbp * bs * G > 2 ** 31 - 1 or W * bs > 2 ** 31 - 1:
@@ -224,7 +234,8 @@ def flash_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
         if splits is None:
             index = torch.cuda.current_device()
             splits = split_count(
-                B, G, W * bs, _sm_count(index),
+                B, G, W * bs if window is None else min(W * bs, window),
+                _sm_count(index),
                 wide_clusters(index, dh, quantized)
                 if rep >= WIDE_MIN_REP else None)
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -233,7 +244,8 @@ def flash_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
             k_scale.data_ptr() if quantized else None,
             v_scale.data_ptr() if quantized else None,
             table.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-            B, G, rep, nbp, bs, W, dh, int(quantized), splits, stream)
+            B, G, rep, nbp, bs, W, dh, int(quantized), splits,
+            window or 0, stream)
     if rc != 0:
         raise RuntimeError(f"flash_decode launch failed: CUDA error {rc} "
                            f"({lib.flash_decode_error_string(rc).decode()})")

@@ -25,25 +25,28 @@ launches = 0  # kernel launches in this process
 plain_calls = 0  # flash-path calls served by the plain version (CPU)
 
 
-def flash_decode(q, pool: dict, table, kv_lens, *, use_flash: bool = True):
+def flash_decode(q, pool: dict, table, kv_lens, *, window: int | None = None,
+                 use_flash: bool = True):
     """Decode attention over a paged KV pool.
 
     q: [B, G, rep, dh] pre-scaled fp32; pool: {"k", "v"} (+ "k_scale",
     "v_scale" when int8) with leaves [NBP, bs, G, dh]; table [B, W] int32;
-    kv_lens [B] int32 valid-position counts.  Returns [B, G, rep, dh] fp32.
+    kv_lens [B] int32 valid-position counts; ``window`` (None: every valid
+    position) keeps each row's last ``window`` of them.  Returns [B, G, rep,
+    dh] fp32.
     """
     global plain_calls
     ks, vs = pool.get("k_scale"), pool.get("v_scale")
     if not use_flash:
         return _ref.flash_decode_ref(q, pool["k"], pool["v"], table, kv_lens,
-                                     ks, vs)
+                                     ks, vs, window)
     refuse_grad("flash_decode", q, *pool.values())
     if q.device.type == "cpu":
         plain_calls += 1
         return _ref.flash_decode_plain(q, pool["k"], pool["v"], table,
-                                       kv_lens, ks, vs)
+                                       kv_lens, ks, vs, window)
     return _k.flash_decode(q, pool["k"], pool["v"], table, kv_lens,
-                           k_scale=ks, v_scale=vs)
+                           k_scale=ks, v_scale=vs, window=window)
 
 
 flash_decode_ref = _ref.flash_decode_ref

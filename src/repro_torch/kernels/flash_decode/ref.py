@@ -9,7 +9,9 @@ Shared layout contract (plain versions and kernel):
     with any in-range id past the row's live window;
   * kv_lens:  [B] int32 — number of VALID kv positions per row (a decode
     step that just wrote position ``len`` passes ``len + 1``);
-  * k_scale/v_scale: [NBP, bs, G, 1] fp32 when the pool is int8.
+  * k_scale/v_scale: [NBP, bs, G, 1] fp32 when the pool is int8;
+  * window:   None, or a sliding window: only the row's last ``window``
+    valid positions, ``[max(0, kv_lens - window), kv_lens)``, count.
 
 Returns [B, G, rep, dh] fp32 (the un-projected per-head context).
 
@@ -51,7 +53,7 @@ def check_scales(k_pool, k_scale, v_scale) -> None:
 
 
 def flash_decode_ref(q, k_pool, v_pool, table, kv_lens, k_scale=None,
-                     v_scale=None) -> torch.Tensor:
+                     v_scale=None, window: int | None = None) -> torch.Tensor:
     check_scales(k_pool, k_scale, v_scale)
     B, G, rep, dh = q.shape
     W = table.shape[1]
@@ -65,16 +67,20 @@ def flash_decode_ref(q, k_pool, v_pool, table, kv_lens, k_scale=None,
     k = k.reshape(B, W * bs, G, dh)
     v = v.reshape(B, W * bs, G, dh)
     s = torch.einsum("bgrd,bkgd->bgrk", q.float(), k)
-    pos = torch.arange(W * bs, device=q.device)
-    s = torch.where(pos[None, None, None, :] < kv_lens[:, None, None, None],
-                    s, torch.full((), _NEG, dtype=s.dtype, device=s.device))
+    pos = torch.arange(W * bs, device=q.device)[None, :]
+    valid = pos < kv_lens[:, None]
+    if window is not None:
+        valid = valid & (pos >= kv_lens[:, None] - window)
+    s = torch.where(valid[:, None, None, :], s,
+                    torch.full((), _NEG, dtype=s.dtype, device=s.device))
     return torch.einsum("bgrk,bkgd->bgrd", torch.softmax(s, dim=-1), v)
 
 
 def flash_decode_plain(q, k_pool, v_pool, table, kv_lens, k_scale=None,
-                       v_scale=None) -> torch.Tensor:
+                       v_scale=None, window: int | None = None
+                       ) -> torch.Tensor:
     out = flash_decode_ref(q, k_pool, v_pool, table, kv_lens, k_scale,
-                           v_scale)
+                           v_scale, window)
     live = (kv_lens > 0)[:, None, None, None]
     return torch.where(live, out, torch.zeros((), dtype=out.dtype,
                                               device=out.device))

@@ -40,9 +40,12 @@ from repro_torch.device import DEFAULT_DEVICE, resolve
 from repro_torch.lm import model as lm_model
 from repro_torch.lm import sampling as lm_sampling
 from repro_torch.lm.paging import BlockTablePool, PagedConfig, cdiv
+from repro_torch.nn import moe as Moe
 from repro_torch.nn import transformer as T
 
 log = logging.getLogger(__name__)
+
+MOE_STATS_CALLS = 1 << 20  # dropless MoE calls the device record keeps
 
 
 def as_tokens(prompt) -> np.ndarray:
@@ -66,7 +69,11 @@ class ServeEngine:
     ``params`` is the port's :class:`repro_torch.nn.transformer.LM`, on
     ``device`` (default ``"cuda"``).  ``last_logits`` holds the fp32
     ``[slots, vocab]`` logits of the latest decode step (rows of inactive
-    slots are garbage)."""
+    slots are garbage).  A paged engine of a dropless MoE model keeps, while
+    a recorder records, each MoE call's experts touched and largest group
+    on the device in ``moe_stats`` (:class:`repro_torch.nn.moe.MoEStats`;
+    None otherwise), and counts ``moe_calls`` and ``moe_assignments`` (the
+    routed tokens times top-k)."""
 
     def __init__(self, cfg, params, batch_slots: int, max_len: int,
                  paged: PagedConfig | None = None, obs=None,
@@ -102,7 +109,17 @@ class ServeEngine:
         self.decode_dispatches = 0
         self.kv_bytes_touched = 0
         self.last_logits = None
+        self.moe_stats = None
+        moe_layers = sum(cfg.kind(i).endswith("moe")
+                         for i in range(cfg.n_layers))
+        self._moe_per_token = (moe_layers, cfg.moe.top_k if moe_layers else 0)
+        # each attention layer's window (None: full), for _kv_step_bytes
+        self._attn_windows = [cfg.attn_cfg(layer=i).window
+                              for i in range(cfg.n_layers)
+                              if cfg.kind(i).startswith("attn")]
         if paged is not None:
+            if moe_layers and cfg.moe_dropless:
+                self.moe_stats = Moe.MoEStats(MOE_STATS_CALLS, self.device)
             lm_model.check_paging_supported(cfg)
             nb = paged.resolve_num_blocks(batch_slots, max_len)
             width = paged.resolve_table_width(batch_slots, max_len)
@@ -161,24 +178,42 @@ class ServeEngine:
         return self.blocks.free_blocks >= cdiv(tokens, self.paged.block_size)
 
     def _kv_step_bytes(self) -> int:
-        """Modelled KV bytes one decode dispatch reads (all attn layers)."""
+        """Modelled KV bytes one decode dispatch reads (all attn layers; a
+        sliding layer's flash_decode reads only the blocks of its
+        window)."""
         cfg = self.cfg
         G = cfg.n_kv_heads
         dh = cfg.head_dim if cfg.head_dim is not None else \
             cfg.d_model // cfg.n_heads
         int8 = cfg.kv_cache_dtype == "int8"
         per_tok = 2 * G * dh * (1 if int8 else 2) + (2 * G * 4 if int8 else 0)
-        n_attn = sum(k.startswith("attn") for k in cfg.block_pattern) \
-            * cfg.n_periods
+        windows = self._attn_windows
         if self.paged is None:
-            window = self.slots * self.max_len  # dense read of the full cache
-        elif self.paged.use_flash:
-            bs = self.paged.block_size  # ceil(len/bs) block reads per row
-            window = sum(cdiv(int(n) + 1, bs) * bs for n in self.lens)
-        else:  # the dense gathered path reads each row's full table window
-            window = self.slots * self.blocks.table_width \
-                * self.paged.block_size
-        return window * per_tok * n_attn
+            # dense read of the full cache
+            return self.slots * self.max_len * per_tok * len(windows)
+        if not self.paged.use_flash:
+            # the dense gathered path reads each row's full table window
+            return self.slots * self.blocks.table_width \
+                * self.paged.block_size * per_tok * len(windows)
+        bs = self.paged.block_size
+        last = self.lens // bs  # the block of each row's new position
+
+        def read(window):  # positions of the blocks one layer reads
+            if window is None:
+                return int((last + 1).sum()) * bs
+            first = np.maximum(self.lens + 1 - window, 0) // bs
+            return int((last - first + 1).sum()) * bs
+
+        return per_tok * sum(read(w) for w in windows)
+
+    def _count_moe(self, tokens: int) -> None:
+        """Host counters of one paged call's MoE layers: ``moe_calls`` and
+        ``moe_assignments`` (``tokens`` routed times top-k, a layer)."""
+        layers, k = self._moe_per_token
+        if layers and self.obs.enabled:
+            self.obs.count("moe_calls", layers, engine=self.obs_track)
+            self.obs.count("moe_assignments", layers * k * tokens,
+                           engine=self.obs_track)
 
     # -- admission ---------------------------------------------------------
 
@@ -242,8 +277,11 @@ class ServeEngine:
                                                    "tokens": count}):
                     lg, _ = lm_model.prefill_chunk_paged(
                         self.params, self.cfg, self.pool, row_table, c0,
-                        torch.from_numpy(padded).to(self.device), count)
+                        torch.from_numpy(padded).to(self.device), count,
+                        obs=self.obs, obs_track=self.obs_track,
+                        moe_stats=self.moe_stats)
                 self.prefill_dispatches += 1
+                self._count_moe(count)
                 logits = lg[:, count - 1]
         else:
             with self.obs.span("prefill", track=self.obs_track, cat="lm",
@@ -316,11 +354,15 @@ class ServeEngine:
                             dtype=torch.int64)[:, None].to(dev)
         act = torch.from_numpy(self.active.copy()).to(dev)
         if self.paged is not None:
+            routed = int(self.active.sum())
             logits, _ = lm_model.decode_step_paged(
                 self.params, self.cfg, self.pool,
                 torch.from_numpy(self.blocks.table()).to(dev),
                 torch.from_numpy(self.lens.astype(np.int32)).to(dev), last,
-                act, use_flash=self.paged.use_flash)
+                act, use_flash=self.paged.use_flash, obs=self.obs,
+                obs_track=self.obs_track, moe_stats=self.moe_stats,
+                routed=routed)
+            self._count_moe(routed)
         else:
             logits = self._decode_masked(last, act)
         self.last_logits = logits[:, -1]

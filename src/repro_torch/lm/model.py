@@ -15,8 +15,15 @@ threads the stacked KV *pool* (shared physical blocks) plus a block
 
 The pool is written in place (the reference donates it).  Both entry
 points run under ``torch.no_grad()``: serving builds no graph, whatever the
-model's layout and the caller's grad mode.  Paging takes
-attention-only stacks, with an MLP or MoE half (``attn_mlp`` /
+model's layout and the caller's grad mode.  Each layer attends with its own
+configuration (``cfg.attn_cfg(layer=i)``): full attention, or a sliding
+window over the last ``cfg.sliding_window`` positions (``attn_pattern``),
+whose decode is ``flash_decode`` over the window.  A dropless MoE routes
+only the chunk's real tokens and the step's active rows; with a recorder
+(``obs``) each layer's MoE half runs in a ``moe`` span (args ``layer``,
+``tokens``, ``call``) and ``moe_stats`` (:class:`repro_torch.nn.moe.
+MoEStats`) keeps its experts touched and largest group on the device.
+Paging takes attention-only stacks, with an MLP or MoE half (``attn_mlp`` /
 ``attn_moe``; each layer's kind from ``block_pattern``):
 :func:`check_paging_supported` rejects stateful block patterns (mamba /
 xLSTM / cross-attention / encoders) and M-RoPE with the reason, as the
@@ -26,6 +33,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs as obs_mod
 from repro_torch.device import DEFAULT_DEVICE, resolve
 from repro_torch.nn import layers as L
 from repro_torch.nn import transformer as T
@@ -44,6 +52,11 @@ def paging_unsupported_reason(cfg) -> str | None:
         return "M-RoPE (multi-stream positions) is not paged"
     if cfg.vision_patches:
         return "vision-prefix stacks are not paged"
+    unknown = set(cfg.attn_pattern) - {"full", "sliding"}
+    if unknown:
+        return f"unknown attention kinds {sorted(unknown)}"
+    if "sliding" in cfg.attn_pattern and cfg.sliding_window is None:
+        return "sliding layers need a sliding_window"
     return None
 
 
@@ -70,33 +83,64 @@ def layer_pool(pool: dict, layer: int) -> dict:
     return {k: v[layer] for k, v in pool.items()}
 
 
+def _ffn_half(blk, i: int, cfg, x, valid, obs, track: str, moe_stats,
+              tokens: int | None):
+    """Layer ``i``'s MLP or MoE half; a MoE half inside a ``moe`` span
+    when ``obs`` records, its call logged in ``moe_stats`` where given."""
+    kind = cfg.kind(i)
+    if not (kind.endswith("moe") and obs.enabled):
+        return T._ffn_half(blk, kind, cfg, x, valid)[0]
+    args = {"layer": i, "tokens": tokens}
+    if moe_stats is not None:
+        args["call"] = moe_stats.calls  # the index record() gives the call
+    with obs.span("moe", track=track, cat="lm", args=args):
+        x, aux = T._ffn_half(blk, kind, cfg, x, valid)
+        if moe_stats is not None:
+            moe_stats.record(aux["expert_counts"])
+    return x
+
+
 @torch.no_grad()
 def decode_step_paged(model, cfg, pool: dict, table, kv_lens, tokens, active,
-                      *, use_flash: bool = True) -> tuple:
+                      *, use_flash: bool = True, obs=None,
+                      obs_track: str = "lm", moe_stats=None,
+                      routed: int | None = None) -> tuple:
     """One decode step. tokens [B, 1]; table [B, W] int32; kv_lens [B]
-    int32 pre-write lengths; active [B] bool.  Returns (logits [B, 1, V]
-    fp32, pool).  Reads nothing back to the host."""
+    int32 pre-write lengths; active [B] bool (the rows a dropless MoE
+    routes).  ``routed``: the active rows' count, for the ``moe`` spans'
+    args.  Returns (logits [B, 1, V] fp32, pool).  Reads nothing back to
+    the host."""
+    obs = obs if obs is not None else obs_mod.NULL
     x = T._embed(model, cfg, tokens)
+    memo: dict = {}  # what the step's layers share (L._memo)
     for i, blk in enumerate(model.blocks):
         h = T._norm(cfg, blk["ln1"], x)
         a, _ = L.attention_decode_paged(
-            blk["attn"], h, layer_pool(pool, i), cfg.attn_cfg(), table,
-            kv_lens, active, use_flash=use_flash)
-        x = T._ffn_half(blk, cfg.kind(i), cfg, x + a)[0]
+            blk["attn"], h, layer_pool(pool, i), cfg.attn_cfg(layer=i), table,
+            kv_lens, active, use_flash=use_flash, memo=memo)
+        x = _ffn_half(blk, i, cfg, x + a, active[:, None], obs, obs_track,
+                      moe_stats, routed)
     return T._logits(model, cfg, x), pool
 
 
 @torch.no_grad()
 def prefill_chunk_paged(model, cfg, pool: dict, row_table, len0: int, tokens,
-                        count: int) -> tuple:
+                        count: int, *, obs=None, obs_track: str = "lm",
+                        moe_stats=None) -> tuple:
     """Prefill one static-width chunk for one slot.  tokens [1, C] (first
-    ``count`` real, tail padded); row_table [W] int32; len0 the KV length
-    before the chunk.  Returns (logits [1, C, V] fp32, pool)."""
+    ``count`` real, tail padded; a dropless MoE routes the real ones);
+    row_table [W] int32; len0 the KV length before the chunk.  Returns
+    (logits [1, C, V] fp32, pool)."""
+    obs = obs if obs is not None else obs_mod.NULL
     x = T._embed(model, cfg, tokens)
+    valid = (torch.arange(tokens.shape[1], device=x.device)[None] < count
+             if cfg.moe_dropless else None)
+    memo: dict = {}  # what the chunk's layers share (L._memo)
     for i, blk in enumerate(model.blocks):
         h = T._norm(cfg, blk["ln1"], x)
         a, _ = L.attention_prefill_paged(
-            blk["attn"], h, layer_pool(pool, i), cfg.attn_cfg(), row_table,
-            len0, count)
-        x = T._ffn_half(blk, cfg.kind(i), cfg, x + a)[0]
+            blk["attn"], h, layer_pool(pool, i), cfg.attn_cfg(layer=i),
+            row_table, len0, count, memo)
+        x = _ffn_half(blk, i, cfg, x + a, valid, obs, obs_track, moe_stats,
+                      count)
     return T._logits(model, cfg, x), pool

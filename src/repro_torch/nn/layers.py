@@ -96,21 +96,91 @@ def layernorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 # RoPE
 # ---------------------------------------------------------------------------
 
-def rope_freqs(head_dim: int, theta: float = 1e4, device=None) -> torch.Tensor:
+@dataclasses.dataclass(frozen=True)
+class YaRN:
+    """YaRN's scaling of RoPE (Peng et al., 2023), as transformers computes
+    ``rope_type: "yarn"``: frequencies ``inv_freq_i = theta ** (-2i / dh)``
+    blended with ``inv_freq_i / factor`` by the ramp ``r_i = clamp((i - low)
+    / (high - low), 0, 1)``, ``inv_freq_i (1 - r_i) + inv_freq_i / factor
+    r_i``, where ``low = floor(c(beta_fast))``, ``high = ceil(c(beta_slow))``
+    and ``c(n) = dh ln(original / (2 pi n)) / (2 ln theta)``; cos and sin
+    are both multiplied by ``attention_factor`` (``0.1 ln(factor) + 1``
+    where None), so a score carries its square."""
+
+    factor: float
+    original_max_position_embeddings: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    attention_factor: float | None = None
+
+    @property
+    def mscale(self) -> float:
+        if self.attention_factor is not None:
+            return self.attention_factor
+        return 0.1 * math.log(self.factor) + 1.0
+
+    def correction_range(self, head_dim: int, theta: float) -> tuple:
+        """``(low, high)``: the frequency indices the ramp runs between."""
+        def dim(n):
+            return head_dim * math.log(
+                self.original_max_position_embeddings / (2 * math.pi * n)) \
+                / (2 * math.log(theta))
+
+        return (max(math.floor(dim(self.beta_fast)), 0),
+                min(math.ceil(dim(self.beta_slow)), head_dim - 1))
+
+
+def rope_freqs(head_dim: int, theta: float = 1e4, device=None,
+               yarn: YaRN | None = None) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
-    return 1.0 / (theta ** exps)
+    inv = 1.0 / (theta ** exps)
+    if yarn is None:
+        return inv
+    low, high = yarn.correction_range(head_dim, theta)
+    i = torch.arange(head_dim // 2, dtype=torch.float32, device=device)
+    ramp = torch.clamp((i - low) / max(high - low, 1e-3), 0.0, 1.0)
+    return inv * (1 - ramp) + inv / yarn.factor * ramp
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float = 1e4) -> torch.Tensor:
-    """x: [B, S, H, dh]; positions: [B, S] int -> rotated x (fp32 math)."""
-    freqs = rope_freqs(x.shape[-1], theta, x.device)  # [dh/2]
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
+                 yarn: YaRN | None, device) -> tuple:
+    """``(cos, sin)`` [B, S, 1, dh/2] fp32 of RoPE at ``positions`` [B, S];
+    with ``yarn``, YaRN's frequencies, both times its attention factor."""
+    freqs = rope_freqs(head_dim, theta, device, yarn)  # [dh/2]
     ang = positions[..., None].float() * freqs  # [B, S, dh/2]
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    if yarn is not None:
+        cos, sin = cos * yarn.mscale, sin * yarn.mscale
+    return cos, sin
+
+
+def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+           ) -> torch.Tensor:
+    """x: [B, S, H, dh] rotated (rotate-half, fp32 math) by ``cos``/``sin``
+    of :func:`rope_cos_sin`."""
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 1e4, yarn: YaRN | None = None) -> torch.Tensor:
+    """x: [B, S, H, dh]; positions: [B, S] int -> rotated x (fp32 math);
+    with ``yarn``, YaRN's frequencies and attention factor."""
+    return rotate(x, *rope_cos_sin(positions, x.shape[-1], theta, yarn,
+                                   x.device))
+
+
+def _memo(memo: dict | None, key, make):
+    """``make()``, kept in ``memo`` under ``key`` where a caller shares one
+    ``memo`` over the layers of a step (their positions and indices are the
+    same), so that it is computed once a step."""
+    if memo is None:
+        return make()
+    if key not in memo:
+        memo[key] = make()
+    return memo[key]
 
 
 def _section_ids(sections: tuple, n: int, device) -> torch.Tensor:
@@ -184,6 +254,10 @@ class AttnConfig:
     mrope_sections: tuple | None = None  # set for qwen2-vl
     causal: bool = True
     flash_block: int = 1024
+    # a sliding window: query position i sees key j only if i - window < j
+    # <= i (None: every earlier key)
+    window: int | None = None
+    yarn: YaRN | None = None  # YaRN's RoPE scaling (None: plain RoPE)
 
     @property
     def dh(self) -> int:
@@ -209,9 +283,11 @@ def attention_logical(cfg: AttnConfig) -> dict:
             "o": _dense_logical(("heads", "embed"))}
 
 
-def _qkv(p, x: torch.Tensor, cfg: AttnConfig, positions) -> tuple:
+def _qkv(p, x: torch.Tensor, cfg: AttnConfig, positions,
+         memo: dict | None = None) -> tuple:
     """q [B, S, H, dh], k/v [B, S, G, dh], rotated by RoPE at ``positions``
-    [B, S] (none when None) or by M-RoPE at ``positions`` [B, 3, S]."""
+    [B, S] (none when None; its cos and sin shared through ``memo``, see
+    :func:`_memo`) or by M-RoPE at ``positions`` [B, 3, S]."""
     B, S, _ = x.shape
     dh = cfg.dh
     q = split_heads(dense(p["q"], x), cfg.n_heads, dh)
@@ -223,8 +299,10 @@ def _qkv(p, x: torch.Tensor, cfg: AttnConfig, positions) -> tuple:
         q = apply_mrope(q, positions, cfg.mrope_sections, cfg.rope_theta)
         k = apply_mrope(k, positions, cfg.mrope_sections, cfg.rope_theta)
     elif positions is not None:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        cos, sin = _memo(memo, ("rope", cfg.rope_theta, cfg.yarn),
+                         lambda: rope_cos_sin(positions, dh, cfg.rope_theta,
+                                              cfg.yarn, q.device))
+        q, k = rotate(q, cos, sin), rotate(k, cos, sin)
     # Only the q heads get an explicit constraint; k/v inherit the weight
     # sharding (forcing n_kv < mesh axis size causes involuntary resharding).
     q = shard(q, "batch", "seq", "heads", None)
@@ -232,8 +310,8 @@ def _qkv(p, x: torch.Tensor, cfg: AttnConfig, positions) -> tuple:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool, block: int, q_offset: int = 0
-                    ) -> torch.Tensor:
+                    causal: bool, block: int, q_offset: int = 0,
+                    window: int | None = None) -> torch.Tensor:
     """Blockwise-softmax attention, the reference's loop over KV blocks.
 
     q: [B, Sq, H, dh]; k, v: [B, Sk, G, dh] with H = G * rep (GQA; KV heads
@@ -243,7 +321,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     numbers are the reference's up to fp32 summation order.  Under
     autograd each block runs under a checkpoint, as the reference's scan
     body does, so the backward pass keeps no [B, Sq, H, block] scores of
-    any block.  Returns [B, Sq, H, dh] in q's dtype.
+    any block.  With a ``window`` (causal), query position i sees key j
+    only if ``i - window < j``.  Returns [B, Sq, H, dh] in q's dtype.
     """
     B, Sq, H, dh = q.shape
     Sk, G = k.shape[1], k.shape[2]
@@ -271,6 +350,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         valid = (kv_pos < Sk)[None, :]
         if causal:
             valid = valid & (kv_pos[None, :] <= q_pos[:, None])
+            if window is not None:
+                valid = valid & (kv_pos[None, :] > q_pos[:, None] - window)
         s = torch.where(valid[None, :, None, :], s,
                         torch.full((), _NEG, dtype=torch.float32, device=dev))
         m_new = torch.maximum(m, s.amax(-1))
@@ -305,7 +386,8 @@ def attention(p, x: torch.Tensor, cfg: AttnConfig,
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions)
     out = sharded_flash_attention(q, k, v, causal=cfg.causal,
-                                  block=min(cfg.flash_block, S))
+                                  block=min(cfg.flash_block, S),
+                                  window=cfg.window)
     return shard(dense(p["o"], merge_heads(out)), "batch", "seq", "embed_act")
 
 
@@ -388,7 +470,10 @@ def attention_decode(p, x: torch.Tensor, cache: dict, cfg: AttnConfig,
     G = k.shape[2]
     rep = cfg.n_heads // G
     qf = (q.float() * cfg.dh ** -0.5).reshape(B, 1, G, rep, cfg.dh)
-    valid = torch.arange(Smax, device=x.device)[None, :] <= pos[:, None]
+    kpos = torch.arange(Smax, device=x.device)[None, :]
+    valid = kpos <= pos[:, None]
+    if cfg.window is not None:
+        valid = valid & (kpos > pos[:, None] - cfg.window)
     out = _dense_softmax_out(qf, k, v, valid[:, None, None, None, :],
                              "bqgrd,bkgd->bqgrk", "bqgrk,bkgd->bqgrd")
     out = out.reshape(B, 1, cfg.n_heads * cfg.dh).to(x.dtype)
@@ -468,8 +553,11 @@ def _decode_sharded(q, k_new, v_new, cache: dict, cfg: AttnConfig,
             k, v = k * c["k_scale"], v * c["v_scale"]
         G = k.shape[2]
         qf = (q.float() * dh ** -0.5).reshape(Bl, 1, G, H // G, dh)
-        valid = ((off + torch.arange(S_loc, device=q.device))[None, :]
-                 <= pos[:, None])[:, None, None, None, :]
+        kpos = (off + torch.arange(S_loc, device=q.device))[None, :]
+        valid = kpos <= pos[:, None]
+        if cfg.window is not None:
+            valid = valid & (kpos > pos[:, None] - cfg.window)
+        valid = valid[:, None, None, None, :]
         s = torch.einsum("bqgrd,bkgd->bqgrk", qf, k)
         s = torch.where(valid, s, torch.full((), _NEG, device=q.device))
         m = combine(s.amax(-1), "max")
@@ -534,7 +622,8 @@ def _pool_write(pool: dict, phys, off, k_new, v_new) -> dict:
 
 def attention_decode_paged(p, x: torch.Tensor, pool: dict, cfg: AttnConfig,
                            table, kv_lens, active, *,
-                           use_flash: bool = True) -> tuple:
+                           use_flash: bool = True,
+                           memo: dict | None = None) -> tuple:
     """Single-token decode against a paged KV pool.
 
     x: [B, 1, d]; pool: {'k','v': [NBP, bs, G, dh]} (+ scales when int8);
@@ -542,64 +631,97 @@ def attention_decode_paged(p, x: torch.Tensor, pool: dict, cfg: AttnConfig,
     active: [B] bool — inactive rows write their KV to the trash block (and
     their output is garbage the caller ignores).  The pool is written in
     place.  Attention is one ``flash_decode`` call (the CUDA kernel for
-    tensors on the card).  Returns ``(out, pool)``.
+    tensors on the card), over the last ``cfg.window`` positions of a
+    windowed layer.  A ``memo`` shared over a step's layers computes the
+    positions' RoPE and the write's indices once (:func:`_memo`).  Returns
+    ``(out, pool)``.
     """
     from repro_torch.kernels.flash_decode import ops as _fd
 
     B = x.shape[0]
-    q, k_new, v_new = _qkv(p, x, cfg, kv_lens[:, None])
+    q, k_new, v_new = _qkv(p, x, cfg, kv_lens[:, None], memo)
     bs = pool["k"].shape[1]
     trash = pool["k"].shape[0] - 1
-    W = table.shape[1]
-    lens = kv_lens.long()
-    rows = torch.arange(B, device=x.device)
-    blk = torch.clamp(lens // bs, max=W - 1)
-    phys = torch.where(active, table[rows, blk].long(),
-                       torch.full_like(lens, trash))
-    _pool_write(pool, phys, lens % bs, k_new[:, 0], v_new[:, 0])
+
+    def write_at():
+        W = table.shape[1]
+        lens = kv_lens.long()
+        rows = torch.arange(B, device=x.device)
+        blk = torch.clamp(lens // bs, max=W - 1)
+        phys = torch.where(active, table[rows, blk].long(),
+                           torch.full_like(lens, trash))
+        return phys, lens % bs, kv_lens + 1
+
+    phys, off, valid_lens = _memo(memo, "write", write_at)
+    _pool_write(pool, phys, off, k_new[:, 0], v_new[:, 0])
     G = pool["k"].shape[2]
     rep = cfg.n_heads // G
     qf = (q.float() * cfg.dh ** -0.5).reshape(B, G, rep, cfg.dh)
-    out = _fd.flash_decode(qf, pool, table, kv_lens + 1, use_flash=use_flash)
+    out = _fd.flash_decode(qf, pool, table, valid_lens, window=cfg.window,
+                           use_flash=use_flash)
     out = out.reshape(B, 1, cfg.n_heads * cfg.dh).to(x.dtype)
     return shard(dense(p["o"], out), "batch", None, "embed_act"), pool
 
 
 def attention_prefill_paged(p, x: torch.Tensor, pool: dict, cfg: AttnConfig,
-                            row_table, len0: int, count: int) -> tuple:
+                            row_table, len0: int, count: int,
+                            memo: dict | None = None) -> tuple:
     """Chunked prefill for ONE slot against the paged pool.
 
     x: [1, C, d] — a static-width chunk whose first ``count`` tokens are
     real (the tail is padding whose KV goes to the trash block);
     row_table: [W] int32; len0: the KV length before the chunk.  Causal
     masking is per query position (kv pos <= len0 + i), so one call gives
-    the logits of C single-token decode calls.  The pool is written in
-    place.  Returns ``(out [1, C, d], pool)``.
+    the logits of C single-token decode calls.  A windowed layer
+    (``cfg.window``) also masks kv pos <= len0 + i - window and gathers
+    only the table's blocks that its chunk's window reaches; any other
+    layer gathers the slot's whole table.  A ``memo`` shared over a chunk's
+    layers computes the positions' RoPE, the write's indices and each
+    window's mask once (:func:`_memo`).  The pool is written in place.
+    Returns ``(out [1, C, d], pool)``.
     """
     C = x.shape[1]
     dev = x.device
-    idx = len0 + torch.arange(C, device=dev)  # absolute positions [C]
-    q, k_new, v_new = _qkv(p, x, cfg, idx[None])
+    idx = _memo(memo, "positions",
+                lambda: len0 + torch.arange(C, device=dev))  # absolute [C]
+    q, k_new, v_new = _qkv(p, x, cfg, idx[None], memo)
     bs = pool["k"].shape[1]
     trash = pool["k"].shape[0] - 1
     W = row_table.shape[0]
-    within = torch.arange(C, device=dev) < count
-    phys = torch.where(within, row_table[torch.clamp(idx // bs, max=W - 1)]
-                       .long(), torch.full_like(idx, trash))
-    _pool_write(pool, phys, idx % bs, k_new[0], v_new[0])
-    tab = row_table.long()
-    k = pool["k"][tab].float()  # [W, bs, G, dh]
+
+    def write_at():
+        within = torch.arange(C, device=dev) < count
+        phys = torch.where(within, row_table[torch.clamp(idx // bs,
+                                                         max=W - 1)].long(),
+                           torch.full_like(idx, trash))
+        return phys, idx % bs
+
+    _pool_write(pool, *_memo(memo, "write", write_at), k_new[0], v_new[0])
+    b0, b1 = 0, W  # the table's blocks [b0, b1) gathered
+    if cfg.window is not None:
+        b0 = max(0, len0 + 1 - cfg.window) // bs
+        b1 = min(W, -(-(len0 + C) // bs))
+    n = (b1 - b0) * bs
+
+    def gather_mask():
+        kpos = b0 * bs + torch.arange(n, device=dev)[None, :]
+        valid = kpos <= idx[:, None]
+        if cfg.window is not None:
+            valid = valid & (kpos > idx[:, None] - cfg.window)
+        return row_table[b0:b1].long(), valid[None, :, None, None, :]
+
+    tab, valid = _memo(memo, ("mask", cfg.window), gather_mask)
+    k = pool["k"][tab].float()  # [b1 - b0, bs, G, dh]
     v = pool["v"][tab].float()
     if "k_scale" in pool:
         k = k * pool["k_scale"][tab]
         v = v * pool["v_scale"][tab]
     G, dh = k.shape[2], k.shape[3]
-    k = k.reshape(W * bs, G, dh)
-    v = v.reshape(W * bs, G, dh)
+    k = k.reshape(n, G, dh)
+    v = v.reshape(n, G, dh)
     rep = cfg.n_heads // G
     qf = (q.float() * cfg.dh ** -0.5).reshape(1, C, G, rep, dh)
-    valid = torch.arange(W * bs, device=dev)[None, :] <= idx[:, None]
-    out = _dense_softmax_out(qf, k, v, valid[None, :, None, None, :],
+    out = _dense_softmax_out(qf, k, v, valid,
                              "bcgrd,kgd->bcgrk", "bcgrk,kgd->bcgrd")
     out = out.reshape(1, C, cfg.n_heads * cfg.dh).to(x.dtype)
     return shard(dense(p["o"], out), "batch", "seq", "embed_act"), pool

@@ -5,6 +5,14 @@ top-4 and jamba 16 top-2 run through it).  A dropping MoE: the token ->
 expert assignments are sorted by expert, each expert takes a fixed capacity
 of them, and overflow assignments fall back to the residual path.
 
+A model whose configuration sets ``moe_dropless`` (Mellum2) takes
+:func:`moe_dropless` instead, which the reference package does not have:
+no capacity, the rows a caller marks invalid (padded prefill tokens,
+inactive decode slots) left out of routing, and each token's output a
+function of its own hidden state alone; the expert products run as one
+grouped product a projection over every expert's contiguous group of rows
+(:func:`grouped_mm`).
+
 Routing is per batch row; at decode (S == 1, B > 1) the rows of each data
 shard are folded into ONE routing group (all B rows with no mesh), so
 capacity is sized for B * K assignments and the rows compete for it
@@ -223,3 +231,124 @@ def moe(p, x: torch.Tensor, cfg: MoEConfig) -> tuple:
         "dropped_frac": 1.0 - torch.mean(keep.float()),
     }
     return shard(y, "batch", "seq", "embed_act"), aux
+
+
+# ---------------------------------------------------------------------------
+# Dropless routing (configurations with ``dropless=True``)
+# ---------------------------------------------------------------------------
+
+def grouped_mm(x: torch.Tensor, w: torch.Tensor, offs: torch.Tensor
+               ) -> torch.Tensor:
+    """``x [M, k]``, its rows in groups ``[offs[e-1], offs[e])`` (int32
+    cumulative ends on the device, ``offs[-1] <= M``), each times its
+    group's ``w[e] [k, n]``: ``[M, n]``, one launch of PyTorch's grouped
+    product (``torch._grouped_mm``; CUTLASS's grouped GEMM on the card), no
+    host sync.  Rows past ``offs[-1]`` are left unwritten.  Under autograd
+    the groups run one product each (the grouped product has no backward
+    on the CPU), reading ``offs`` back to the host."""
+    if not L.recording(x, w):
+        return torch._grouped_mm(x, w, offs=offs)
+    ends = offs.tolist()
+    parts = [x[a:b] @ w[e] for e, (a, b) in enumerate(zip([0] + ends[:-1],
+                                                          ends))]
+    rest = x.new_zeros((x.shape[0] - ends[-1], w.shape[-1]))
+    return torch.cat(parts + [rest])
+
+
+class MoEStats:
+    """A device record of dropless MoE calls, for the benchmark's roofline
+    of the grouped products: row ``i % capacity`` of ``buf`` [capacity, 2]
+    int32 holds call ``i``'s number of experts that received a token and
+    its largest group, written on the device (no host sync); ``calls``
+    counts the calls on the host."""
+
+    def __init__(self, capacity: int, device):
+        self.buf = torch.zeros((capacity, 2), dtype=torch.int32,
+                               device=device)
+        self.calls = 0
+
+    def record(self, counts: torch.Tensor) -> int:
+        """Record one call's ``counts`` [E] (rows an expert received);
+        returns the call's index."""
+        i = self.calls
+        self.buf[i % self.buf.shape[0]] = torch.stack(
+            ((counts > 0).sum(), counts.max())).to(torch.int32)
+        self.calls += 1
+        return i
+
+    def rows(self, lo: int, hi: int) -> torch.Tensor:
+        """``[hi - lo, 2]`` of calls ``lo .. hi - 1`` (the last ``capacity``
+        calls only), on the host."""
+        n = self.buf.shape[0]
+        if hi - lo > n or lo < self.calls - n:
+            raise ValueError(f"calls {lo}..{hi - 1}: only the last {n} of "
+                             f"{self.calls} are kept")
+        idx = torch.arange(lo, hi) % n
+        return self.buf[idx.to(self.buf.device)].cpu()
+
+
+def moe_dropless(p, x: torch.Tensor, cfg: MoEConfig, valid=None,
+                 losses: bool = True) -> tuple:
+    """x: [B, S, d] -> (y [B, S, d], aux): the dropless MoE.
+
+    Each token's router probabilities ``softmax(x . W_r)`` in fp32 (the
+    product too), its top ``K`` experts (:func:`top_k`: a tie keeps the
+    lower expert), weights ``p_top / sum(p_top)``, and ``y = sum_k w_k
+    down_e(silu(gate_e x) * up_e x)`` (``F.silu``, rounded once: this path
+    answers to no JAX rounding) over its experts in ascending expert
+    order, summed in fp32 and rounded once to ``x``'s type.  No capacity:
+    every assignment is computed.  ``valid`` ([B, S] bool, None: every
+    token) leaves the other tokens out of routing; their output is 0.  The
+    assignments are sorted by expert (stable) into contiguous groups whose
+    cumulative ends stay on the device, and each projection is one
+    :func:`grouped_mm` over all of them.  A token's output depends on its
+    own hidden state alone, whatever shares its call.  ``aux``:
+    ``expert_counts`` [E] int32, the rows each expert received, and with
+    ``losses`` (serving leaves them out) ``load_balance``, ``router_z`` and
+    ``dropped_frac`` (0) over the valid tokens, as :func:`moe`'s."""
+    if current_mesh() is not None:
+        raise ValueError("the dropless MoE runs on one device")
+    B, S, d = x.shape
+    E, K = cfg.num_experts, cfg.top_k
+    N = B * S
+    xf = x.reshape(N, d)
+    logits = xf.float() @ p["router"].float()  # [N, E]
+    probs = torch.softmax(logits, -1)
+    top_p, top_e = top_k(probs, K)
+    top_p = top_p / top_p.sum(-1, keepdim=True)
+    first = top_e[:, 0]
+    # a token's experts ascending, so that its sum runs in expert order
+    top_e, order_k = torch.sort(top_e, dim=-1)
+    top_p = torch.gather(top_p, -1, order_k)
+    ok = (torch.ones(N, dtype=torch.bool, device=x.device) if valid is None
+          else valid.reshape(N))
+    flat_e = torch.where(ok[:, None], top_e, E).reshape(N * K)  # E: left out
+    order = torch.sort(flat_e, stable=True).indices
+    # rows an expert receives (scatter_add, not bincount: no host sync)
+    counts = torch.zeros(E + 1, dtype=torch.int64, device=x.device)
+    counts = counts.scatter_add_(0, flat_e, torch.ones_like(flat_e))[:E]
+    offs = torch.cumsum(counts, 0).to(torch.int32)
+    rows = xf[order // K]  # [N K, d], grouped by expert
+    wt = x.dtype
+    h = torch.nn.functional.silu(grouped_mm(rows, p["gate"].to(wt), offs)) \
+        * grouped_mm(rows, p["up"].to(wt), offs)
+    out = grouped_mm(h, p["down"].to(wt), offs)  # [N K, d]
+    slot = torch.empty_like(order)
+    slot[order] = torch.arange(N * K, device=x.device)
+    parts = out[slot].reshape(N, K, d).float() * top_p[..., None]
+    y = parts[:, 0]
+    for k in range(1, K):
+        y = y + parts[:, k]
+    y = y.masked_fill(~ok[:, None], 0.0).to(wt).reshape(B, S, d)
+    aux = {"expert_counts": counts.to(torch.int32)}
+    if not losses:
+        return y, aux
+    okf = ok.float()
+    n_ok = torch.clamp(okf.sum(), min=1.0)
+    me = (_one_hot(first, E).float() * okf[:, None]).sum(0)
+    ce = (probs * okf[:, None]).sum(0)
+    aux.update(load_balance=E * torch.sum(me * ce) / n_ok ** 2,
+               router_z=cfg.router_z_loss * torch.sum(
+                   torch.square(torch.logsumexp(logits, -1)) * okf) / n_ok,
+               dropped_frac=torch.zeros((), device=x.device))
+    return y, aux

@@ -1,11 +1,15 @@
 """Model assembly: heterogeneous-block decoder stacks.
 
 The port of ``repro/nn/transformer.py``; one config drives the ten
-reference architectures.  A ``block_pattern`` (cycled over layers) names
-each layer's kind:
+reference architectures and Mellum2, which the reference does not have.  A
+``block_pattern`` (cycled over layers) names each layer's kind:
 
     attn_mlp | attn_moe | attn_cross_mlp (whisper decoder) |
     mamba_mlp | mamba_moe | mlstm | slstm
+
+and an ``attn_pattern`` (cycled over layers too) its attention's: ``full``
+(every earlier position; RoPE scaled by ``yarn`` where set) or ``sliding``
+(the last ``sliding_window`` positions, plain RoPE).
 
 The model is an ``nn.Module``, :class:`LM`: the embedding, one block per
 layer (layer ``i`` is of kind ``block_pattern[i % period]``), ``final_ln``,
@@ -88,6 +92,10 @@ class ModelConfig:
     kv_cache_dtype: str = "bf16"  # "int8": halves decode cache traffic
     param_dtype: Any = torch.float32
     activ_dtype: Any = torch.bfloat16
+    attn_pattern: tuple = ("full",)  # "full" | "sliding", cycled over layers
+    sliding_window: int | None = None  # keys a "sliding" layer sees
+    yarn: L.YaRN | None = None  # the RoPE scaling of "full" layers
+    moe_dropless: bool = False  # MoE layers: Moe.moe_dropless, no capacity
 
     @property
     def period(self) -> int:
@@ -103,10 +111,24 @@ class ModelConfig:
     def kind(self, layer: int) -> str:
         return self.block_pattern[layer % self.period]
 
-    def attn_cfg(self, causal=True) -> L.AttnConfig:
+    def attn_kind(self, layer: int) -> str:
+        """``"full"`` or ``"sliding"``: layer ``layer``'s attention."""
+        kind = self.attn_pattern[layer % len(self.attn_pattern)]
+        if kind not in ("full", "sliding"):
+            raise ValueError(f"unknown attention kind {kind!r}")
+        if kind == "sliding" and self.sliding_window is None:
+            raise ValueError("a sliding layer needs sliding_window")
+        return kind
+
+    def attn_cfg(self, causal=True, layer: int = 0) -> L.AttnConfig:
+        """Layer ``layer``'s self-attention: a sliding layer's window and
+        plain RoPE, or a full layer's RoPE with ``yarn``."""
+        sliding = self.attn_kind(layer) == "sliding"
         return L.AttnConfig(self.d_model, self.n_heads, self.n_kv_heads,
                             self.head_dim, self.qkv_bias, self.rope_theta,
-                            self.mrope_sections, causal=causal)
+                            self.mrope_sections, causal=causal,
+                            window=self.sliding_window if sliding else None,
+                            yarn=None if sliding else self.yarn)
 
     def xattn_cfg(self) -> L.AttnConfig:
         """Cross-attention of ``attn_cross_mlp`` blocks: MHA, no bias, no
@@ -545,9 +567,16 @@ def _cross_attention(p, cfg: ModelConfig, x: torch.Tensor,
                      "batch", "seq", "embed_act")
 
 
-def _ffn_half(p, kind: str, cfg: ModelConfig, x: torch.Tensor) -> tuple:
-    """``(x + ffn(ln2(x)), aux)``: the MLP, or the MoE with its aux terms."""
+def _ffn_half(p, kind: str, cfg: ModelConfig, x: torch.Tensor,
+              valid=None) -> tuple:
+    """``(x + ffn(ln2(x)), aux)``: the MLP, or the MoE with its aux terms.
+    ``valid`` (the serving entries': the tokens a dropless MoE routes; None
+    for all) also leaves out a dropless MoE's loss terms."""
     h = _norm(cfg, p["ln2"], x)
+    if kind.endswith("moe") and cfg.moe_dropless:
+        m, aux = Moe.moe_dropless(p["moe"], h, cfg.moe, valid,
+                                  losses=valid is None)
+        return x + m, aux
     if kind.endswith("moe"):
         m, aux = Moe.moe(p["moe"], h, cfg.moe)
         return x + m, aux
@@ -557,11 +586,13 @@ def _ffn_half(p, kind: str, cfg: ModelConfig, x: torch.Tensor) -> tuple:
 
 
 def _apply_block(p, kind: str, cfg: ModelConfig, x: torch.Tensor,
-                 positions, enc_out) -> tuple:
-    """One block over a full sequence.  Returns (x, aux)."""
+                 positions, enc_out, layer: int = 0) -> tuple:
+    """One block (layer ``layer``) over a full sequence.  Returns (x,
+    aux)."""
     h = _norm(cfg, p["ln1"], x)
     if kind.startswith("attn"):
-        x = x + L.attention(p["attn"], h, cfg.attn_cfg(), positions)
+        x = x + L.attention(p["attn"], h, cfg.attn_cfg(layer=layer),
+                            positions)
         if "cross" in kind:
             x = _cross_attention(p, cfg, x, enc_out)
     elif kind.startswith("mamba"):
@@ -599,7 +630,8 @@ def _period(model: LM, cfg: ModelConfig, p0: int, x: torch.Tensor,
     auxes: dict = {}
     for i in range(p0, p0 + cfg.period):
         x, aux = _apply_block(model.blocks[i], cfg.kind(i), cfg, x,
-                              positions, enc_out)
+                              positions, enc_out, i)
+        aux.pop("expert_counts", None)  # a serving counter, not a loss term
         for k, v in aux.items():
             auxes[k] = auxes.get(k, 0.0) + v
     # Megatron-SP: the remat-saved period boundary is sharded over `model`
@@ -780,11 +812,12 @@ def _first_len(cache: list, cfg: ModelConfig, batch: int, device):
 
 
 def _decode_block(p, kind: str, cfg: ModelConfig, x, positions, enc_out,
-                  lc: dict, active) -> torch.Tensor:
+                  lc: dict, active, layer: int = 0) -> torch.Tensor:
     h = _norm(cfg, p["ln1"], x)
     if kind.startswith("attn"):
-        a, _ = L.attention_decode(p["attn"], h, lc["self"], cfg.attn_cfg(),
-                                  positions, active)
+        a, _ = L.attention_decode(p["attn"], h, lc["self"],
+                                  cfg.attn_cfg(layer=layer), positions,
+                                  active)
         x = x + a
         if "cross" in kind:
             x = _cross_attention(p, cfg, x, enc_out)
@@ -819,5 +852,5 @@ def decode_step(model: LM, cfg: ModelConfig, cache: list,
             tokens.shape)
     for i, blk in enumerate(model.blocks):
         x = _decode_block(blk, cfg.kind(i), cfg, x, positions, enc_out,
-                          layer_cache(cache, cfg, i), active)
+                          layer_cache(cache, cfg, i), active, i)
     return _logits(model, cfg, x), cache

@@ -553,6 +553,52 @@ def _fd_kernel(q, pool, table, lens, splits=None):
                             v_scale=pool.get("v_scale"), splits=splits)
 
 
+# Mellum2-12B-A2.5B's sliding layers: 4 KV heads of 8 query heads (the
+# CUDA-core kernel), a window of 1024 over a 4096-position table; and a
+# window that does not divide the block, on both kernels.
+FD_WINDOW = dict(g=4, rep=8, dh=128, bs=16, width=256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("rep,window", [(8, 1024), (8, 1000), (12, 1000)])
+@pytest.mark.parametrize("splits", [None, 1, 2, 8])
+def test_flash_decode_kernel_with_a_window(cuda, kv_dtype, rep, window,
+                                           splits):
+    """Positions below ``len - window`` are neither read nor counted: the
+    kernel against the plain version's masked softmax, rows below, at and
+    above the window and at the full table."""
+    from repro_torch.kernels.flash_decode import kernel as fdk
+    from repro_torch.kernels.flash_decode import ops as fd
+
+    f = FD_WINDOW
+    g = f["g"] if rep == 8 else 2
+    cap = f["bs"] * f["width"]
+    lens = [0, 1, 17, window - 1, window, window + 1, window + 17,
+            2 * window + 5, cap - 1, cap]
+    q, pool, table = _fd_inputs(len(lens), g, rep, f["dh"], f["bs"],
+                                f["width"], kv_dtype, window + rep, cuda)
+    q = q * f["dh"] ** -0.5
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = fd.launches
+    got = (fd.flash_decode(q, pool, table, kv_lens, window=window)
+           if splits is None else
+           fdk.flash_decode(q, pool["k"], pool["v"], table, kv_lens,
+                            k_scale=pool.get("k_scale"),
+                            v_scale=pool.get("v_scale"), window=window,
+                            splits=splits))
+    want = fd.flash_decode_plain(q, pool["k"], pool["v"], table, kv_lens,
+                                 pool.get("k_scale"), pool.get("v_scale"),
+                                 window)
+    assert fd.launches == before + 1
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    full = fd.flash_decode_plain(q, pool["k"], pool["v"], table, kv_lens,
+                                 pool.get("k_scale"), pool.get("v_scale"))
+    assert (got[-1] - full[-1]).abs().max() > 1e-3  # the window cut
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
 @pytest.mark.parametrize("splits", [2, 4, 8])

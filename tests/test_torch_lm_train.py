@@ -219,7 +219,8 @@ def test_inner_checkpoints_are_bitwise_the_plain_loops(arch_id, monkeypatch):
     if cfg.xlstm is not None:
         cfg = dataclasses.replace(cfg, xlstm=dataclasses.replace(
             cfg.xlstm, chunk=8))
-    monkeypatch.setattr(T.ModelConfig, "attn_cfg", lambda self, causal=True:
+    monkeypatch.setattr(T.ModelConfig, "attn_cfg",
+                        lambda self, causal=True, layer=0:
                         L.AttnConfig(self.d_model, self.n_heads,
                                      self.n_kv_heads, self.head_dim,
                                      self.qkv_bias, self.rope_theta,
